@@ -1,0 +1,45 @@
+"""``unetseg_tpu_torch`` and every submodule import without JAX, flax or
+the JAX package."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import unetseg_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(unetseg_tpu_torch.__path__,
+                                               "unetseg_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "unetseg_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    n, bad = proc.stdout.strip().split(" ", 1)
+    assert int(n) >= 14 and bad == "[]", proc.stdout
+
+
+def test_port_sources_name_no_jax():
+    """No module of the port even mentions importing the JAX side."""
+    import unetseg_tpu_torch
+
+    root = os.path.dirname(unetseg_tpu_torch.__file__)
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                src = open(os.path.join(dirpath, f)).read()
+                for word in ("import jax", "from jax", "import flax",
+                             "from flax", "from unetseg_tpu ",
+                             "from unetseg_tpu.", "import unetseg_tpu\n",
+                             "import unetseg_tpu."):
+                    assert word not in src, (f, word)

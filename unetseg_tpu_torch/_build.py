@@ -1,0 +1,51 @@
+"""Build a shared library from sources at first use, once per content.
+
+Both native libraries of the port (the host C++ library and the CUDA conv
+kernel) are compiled here: the output name carries a hash of the command and
+of every source, so an edited source is never served from a stale library.
+Concurrent builds (pytest-xdist workers, threads) serialise on a file
+lock, and the library appears under its final name only through
+``os.replace``, so no process ever loads a half-written file.
+"""
+
+from __future__ import annotations
+
+import fcntl
+import hashlib
+import os
+import subprocess
+from typing import Sequence
+
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+
+
+def build_shared(name: str, compiler: Sequence[str], sources: Sequence[str],
+                 timeout: float = 600.0) -> str:
+    """Compile ``sources`` with ``compiler + sources + ["-o", out]`` into
+    ``BUILD_DIR`` and return the library's path.  Raises on failure with
+    the compiler's output."""
+    h = hashlib.sha256(" ".join(compiler).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    out = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(out):  # another process built it meanwhile
+                return out
+            tmp = f"{out}.{os.getpid()}.tmp"
+            proc = subprocess.run([*compiler, *sources, "-o", tmp],
+                                  capture_output=True, text=True,
+                                  timeout=timeout)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"building {name} failed ({' '.join(compiler)}):\n"
+                    f"{proc.stdout}\n{proc.stderr}")
+            os.replace(tmp, out)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return out

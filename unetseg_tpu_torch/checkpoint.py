@@ -1,0 +1,213 @@
+"""Read the JAX package's checkpoints and turn them into the port's weights.
+
+A checkpoint is ``UTPUCKPT1\\n`` followed by one msgpack map
+``{"config": {...}, "params": pytree}`` as flax's ``msgpack_serialize``
+writes it: arrays are msgpack ext type 1 holding a packed
+``(shape, dtype_name, bytes)`` tuple.  Neither msgpack nor flax is needed:
+:func:`unpackb` below reads the subset of msgpack these files use.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import struct
+import warnings
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from unetseg_tpu_torch.config import ModelConfig
+
+MAGIC = b"UTPUCKPT1\n"
+_EXT_NDARRAY = 1  # flax.serialization._MsgpackExtType.ndarray
+
+
+class _Reader:
+    """Decoder for maps, arrays, str/bin, ints, floats, bools, nil and ext
+    type 1 (flax's ndarray)."""
+
+    def __init__(self, buf: bytes):
+        self.buf = memoryview(buf)
+        self.pos = 0
+
+    def _take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.buf):
+            raise ValueError("truncated msgpack data")
+        out = self.buf[self.pos: self.pos + n]
+        self.pos += n
+        return out
+
+    def _unpack(self, fmt: str):
+        return struct.unpack(fmt, self._take(struct.calcsize(fmt)))[0]
+
+    def value(self) -> Any:
+        t = self._take(1)[0]
+        if t <= 0x7F:
+            return t
+        if t >= 0xE0:
+            return t - 0x100
+        if 0x80 <= t <= 0x8F:
+            return self._map(t & 0x0F)
+        if 0x90 <= t <= 0x9F:
+            return self._array(t & 0x0F)
+        if 0xA0 <= t <= 0xBF:
+            return str(self._take(t & 0x1F), "utf-8")
+        simple = {0xC0: None, 0xC2: False, 0xC3: True}
+        if t in simple:
+            return simple[t]
+        sized = {  # code -> (length format, kind)
+            0xC4: (">B", "bin"), 0xC5: (">H", "bin"), 0xC6: (">I", "bin"),
+            0xC7: (">B", "ext"), 0xC8: (">H", "ext"), 0xC9: (">I", "ext"),
+            0xD9: (">B", "str"), 0xDA: (">H", "str"), 0xDB: (">I", "str"),
+            0xDC: (">H", "array"), 0xDD: (">I", "array"),
+            0xDE: (">H", "map"), 0xDF: (">I", "map"),
+        }
+        if t in sized:
+            fmt, kind = sized[t]
+            n = self._unpack(fmt)
+            if kind == "bin":
+                return bytes(self._take(n))
+            if kind == "str":
+                return str(self._take(n), "utf-8")
+            if kind == "array":
+                return self._array(n)
+            if kind == "map":
+                return self._map(n)
+            return self._ext(n)
+        scalars = {0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H", 0xCE: ">I",
+                   0xCF: ">Q", 0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
+        if t in scalars:
+            return self._unpack(scalars[t])
+        fixext = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
+        if t in fixext:
+            return self._ext(fixext[t])
+        raise ValueError(f"unsupported msgpack type byte 0x{t:02x}")
+
+    def _array(self, n: int) -> list:
+        return [self.value() for _ in range(n)]
+
+    def _map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            k = self.value()
+            out[k] = self.value()
+        return out
+
+    def _ext(self, n: int) -> np.ndarray:
+        code = self._unpack(">b")
+        data = bytes(self._take(n))
+        if code != _EXT_NDARRAY:
+            raise ValueError(f"unsupported msgpack ext type {code}")
+        shape, dtype_name, raw = unpackb(data)
+        if isinstance(dtype_name, bytes):
+            dtype_name = dtype_name.decode()
+        try:
+            dtype = np.dtype(dtype_name)
+        except TypeError:
+            raise ValueError(f"unsupported array dtype {dtype_name!r}") from None
+        return np.frombuffer(raw, dtype=dtype).reshape(shape).copy()
+
+
+def unpackb(data: bytes) -> Any:
+    """Decode one msgpack value that spans all of ``data``."""
+    r = _Reader(data)
+    out = r.value()
+    if r.pos != len(data):
+        raise ValueError("trailing bytes after msgpack value")
+    return out
+
+
+def load(path: str) -> Tuple[dict, ModelConfig]:
+    """Read a checkpoint: (params pytree of numpy arrays, model config).
+    Arrays keep their stored dtype."""
+    with open(path, "rb") as f:
+        magic = f.read(len(MAGIC))
+        if magic != MAGIC:
+            if magic.startswith(b"UTPUCKPT"):
+                raise ValueError(
+                    f"Checkpoint format version mismatch: {path} has "
+                    f"{magic.strip().decode(errors='replace')!r}, this build "
+                    f"reads {MAGIC.strip().decode()!r}")
+            raise ValueError(f"Not a unetseg_tpu checkpoint: {path}")
+        data = unpackb(f.read())
+    return data["params"], config_from_snapshot(data["config"], path)
+
+
+def config_from_snapshot(raw_cfg, source: str) -> ModelConfig:
+    """ModelConfig from a serialized config dict; unknown (newer) fields are
+    dropped with a warning."""
+    known = {f.name for f in dataclasses.fields(ModelConfig)}
+    raw_cfg = dict(raw_cfg)
+    extra = sorted(set(raw_cfg) - known)
+    if extra:
+        warnings.warn(
+            f"checkpoint {source} carries unknown config fields {extra} "
+            f"(written by a newer build?) — ignoring them", stacklevel=2)
+    return ModelConfig(**{k: v for k, v in raw_cfg.items() if k in known})
+
+
+def load_serving(models_dir: str, include_flagship: bool = True
+                 ) -> Optional[Tuple[dict, ModelConfig, str]]:
+    """The serving checkpoint by the shipped policy, or None:
+    slim5 > slim4 specialist > slim4 robust > gen-1 slim > (optionally) the
+    flagship teacher.  Returns (params, cfg, tier_name)."""
+    order = [("slim5", "flagship_slim5.ckpt"),
+             ("slim4", "flagship_slim4.ckpt"),
+             ("slim4", "flagship_slim4_robust.ckpt"),
+             ("slim", "flagship_slim.ckpt")]
+    if include_flagship:
+        order.append(("flagship", "flagship_synth.ckpt"))
+    for name, fname in order:
+        p = os.path.join(models_dir, fname)
+        if os.path.exists(p):
+            params, cfg = load(p)
+            return params, cfg, name
+    return None
+
+
+def up_weight_from_hwio(w: np.ndarray) -> np.ndarray:
+    """2x2 stride-2 up-conv weight, HWIO ``(2, 2, C, O)`` -> the ``(C, 4*O)``
+    matmul weight laid out (c, a, b, o) for output pixel (2i+a, 2j+b).
+
+    ``lax.conv_transpose`` without ``transpose_kernel`` computes
+    ``y[2i+a, 2j+b] = x[i, j] @ w[1-a, 1-b]``: its taps are flipped against
+    ``torch.conv_transpose2d``'s, so they are flipped here.
+    """
+    c, o = w.shape[2], w.shape[3]
+    return np.asarray(w)[::-1, ::-1].transpose(2, 0, 1, 3).reshape(c, 4 * o)
+
+
+def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
+    """The JAX UNet param pytree (numpy) -> the port's state dict (CPU
+    tensors, stored dtype kept).
+
+    * 3x3 convs keep HWIO ``(3, 3, C, D)``; contiguous, that is the
+      ``(9*C, D)`` operand the conv kernel reads.
+    * The up-conv becomes a matmul weight (:func:`up_weight_from_hwio`).
+    * The 1x1 head ``(1, 1, C, O)`` becomes ``(C, O)``.
+    """
+    def t(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a))  # an owned, writable copy
+
+    state: Dict[str, torch.Tensor] = {}
+
+    def conv(prefix, p):
+        state[prefix + ".weight"] = t(p["w"])
+        state[prefix + ".bias"] = t(p["b"])
+
+    for i, stage in enumerate(tree["encoder"]):
+        conv(f"encoder.{i}.conv1", stage["conv1"])
+        conv(f"encoder.{i}.conv2", stage["conv2"])
+    conv("bottleneck.conv1", tree["bottleneck"]["conv1"])
+    conv("bottleneck.conv2", tree["bottleneck"]["conv2"])
+    for i, stage in enumerate(tree["decoder"]):
+        state[f"decoder.{i}.up.weight"] = t(up_weight_from_hwio(stage["up"]["w"]))
+        state[f"decoder.{i}.up.bias"] = t(stage["up"]["b"])
+        conv(f"decoder.{i}.conv1", stage["conv1"])
+        conv(f"decoder.{i}.conv2", stage["conv2"])
+    hw = np.asarray(tree["head"]["w"])
+    state["head_weight"] = t(hw.reshape(hw.shape[2], hw.shape[3]))
+    state["head_bias"] = t(tree["head"]["b"])
+    return state

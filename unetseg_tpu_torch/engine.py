@@ -1,0 +1,335 @@
+"""Engine lifecycle and the serving pipelines, on PyTorch.
+
+The port of ``unetseg_tpu/engine.py``'s default serving mode, with the
+reference's entry points (include/initialize.h:12, include/process.h:29,
+include/cleanup.h:7) and its five artifacts per image:
+``{base}_normalized.png``, ``{base}_original_sizes.json``,
+``{base}_mask.png``, ``{base}_contour_overlay.png`` and ``{base}.json``.
+
+Per slice: host C++ preprocess to 512² u8 -> device u8/255, UNet, first-max
+argmax -> host C++ mask cleanup and artifact emission.  Entry points run on
+``device="cuda"`` unless the caller asks for the CPU; without CUDA they fail
+rather than fall back.  Still to port (ROADMAP.md queue A): TTA, sliding
+windows, per-class JSON, the confidence cascade, the device postprocess and
+CUDA-graph capture.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from unetseg_tpu_torch import checkpoint
+from unetseg_tpu_torch.config import ModelConfig
+from unetseg_tpu_torch.io import native, raw as raw_io
+from unetseg_tpu_torch.models import registry as model_registry
+from unetseg_tpu_torch.ops import decode, preprocess
+from unetseg_tpu_torch.utils.logger import GLOBAL_LOG, derive_log_dir
+
+#: Artifact tiers of batched processing: which of the five artifacts a
+#: deployment keeps.  The contour JSON is in every tier.
+ARTIFACT_TIERS = ("full", "mask_json", "json")
+_TIER_BITS = {"full": native.TIER_FULL, "mask_json": native.TIER_MASK_JSON,
+              "json": native.TIER_JSON}
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to unetseg_tpu_torch yet (ROADMAP.md queue A, "
+        f"{item})")
+
+
+class InferenceEngine:
+    """The model on one device plus the batch sizes already warmed up."""
+
+    def __init__(self, params, cfg: ModelConfig, device: str = "cuda"):
+        self.cfg = cfg
+        self.size = cfg.image_size  # the reference fixes 512 (process.cpp:70)
+        self.device = torch.device(device)
+        self.model = model_registry.build(params, cfg, self.device)
+        self._warm: set = set()
+        #: Forward passes run, so a caller can hold kernel launch counts
+        #: against them.
+        self.forwards = 0
+
+    def _pipeline(self, u8_batch: torch.Tensor) -> torch.Tensor:
+        """(N, S, S) uint8 on the engine's device -> (N, S, S) uint8 class
+        masks: u8/255 -> UNet -> first-max argmax."""
+        self.forwards += 1
+        with torch.inference_mode():
+            x = preprocess.model_input_from_u8(u8_batch)[..., None]
+            return decode.decode_mask(self.model(x), self.cfg.num_classes)
+
+    def compile(self, batch_size: int) -> None:
+        """Warm up the pipeline for a batch size (the reference's warm-up
+        run, src/process.cpp:92-105)."""
+        if batch_size in self._warm:
+            return
+        self._pipeline(torch.zeros((batch_size, self.size, self.size),
+                                   dtype=torch.uint8, device=self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._warm.add(batch_size)
+
+    def infer(self, u8_batch: np.ndarray) -> torch.Tensor:
+        """Enqueue the pipeline on a host (N, S, S) uint8 batch; returns the
+        mask tensor on the device without waiting for it."""
+        self.compile(u8_batch.shape[0])
+        u8 = torch.from_numpy(np.ascontiguousarray(u8_batch, dtype=np.uint8))
+        if self.device.type == "cuda":
+            u8 = u8.pin_memory().to(self.device, non_blocking=True)
+        return self._pipeline(u8)
+
+    def to_host(self, masks: torch.Tensor) -> Callable[[], np.ndarray]:
+        """Queue the copy of ``masks`` to the host; returns a function that
+        waits for that copy alone and gives the numpy array.  Work enqueued
+        after this call keeps running while the host waits."""
+        if masks.device.type != "cuda":
+            host = masks.numpy()
+            return lambda: host
+        host = torch.empty(masks.shape, dtype=masks.dtype, pin_memory=True)
+        host.copy_(masks, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+
+        def wait() -> np.ndarray:
+            done.synchronize()
+            return host.numpy()
+        return wait
+
+    def cleanup_masks(self, masks: np.ndarray) -> np.ndarray:
+        """Host mask cleanup (C++, reference postprocess.cpp semantics)."""
+        return native.postprocess_batch(np.asarray(masks))
+
+
+_engine: Optional[InferenceEngine] = None
+
+
+def get_engine() -> Optional[InferenceEngine]:
+    return _engine
+
+
+def initialize_engine(cache_path: str, log_dir: Optional[str] = None,
+                      device: str = "cuda", device_postprocess: bool = False,
+                      cascade_ckpt: Optional[str] = None) -> bool:
+    """Load the checkpoint, open the log and warm up batch 1.
+
+    Returns False, with the error in the log, on any failure, including a
+    ``device="cuda"`` request on a host without CUDA.
+    """
+    global _engine
+    if device_postprocess:
+        raise _not_ported("device_postprocess=True", "P7")
+    if cascade_ckpt:
+        raise _not_ported("the confidence cascade", "P8")
+    try:
+        if log_dir is None:
+            log_dir = derive_log_dir(cache_path)
+        if not GLOBAL_LOG.open(log_dir):
+            _engine = None
+            return False
+        GLOBAL_LOG.write("=== Initializing Medical Image Segmentation Engine ===")
+        GLOBAL_LOG.write(f"Engine Cache: {cache_path}")
+        if not os.path.exists(cache_path):
+            GLOBAL_LOG.write(f"Error: engine cache file not found - {cache_path}")
+            _engine = None
+            return False
+
+        params, cfg = checkpoint.load(cache_path)
+        eng = InferenceEngine(params, cfg, device)
+        t0 = time.perf_counter()
+        eng.compile(1)
+        compile_ms = int((time.perf_counter() - t0) * 1000)
+        _engine = eng
+
+        size = cfg.image_size
+        GLOBAL_LOG.write("Engine initialized successfully")
+        GLOBAL_LOG.write(f"Context compiled for fixed {size}x{size} input")
+        GLOBAL_LOG.write(f"  Input size: {size * size * 4} bytes")
+        GLOBAL_LOG.write(
+            f"  Output size: {cfg.num_classes * size * size * 4} bytes "
+            f"(classes={cfg.num_classes})")
+        GLOBAL_LOG.record(event="init", cache=cache_path, compile_ms=compile_ms,
+                          device=str(eng.device))
+        return True
+    except Exception as e:
+        print(f"Initialization error: {e}")
+        if GLOBAL_LOG.is_open():
+            GLOBAL_LOG.write(f"Initialization error: {e}")
+        _engine = None  # never leave a half-initialized engine servable
+        return False
+
+
+def cleanup_resources() -> None:
+    """Ordered teardown, parity with src/cleanup.cpp:10-64."""
+    global _engine
+    if GLOBAL_LOG.is_open():
+        GLOBAL_LOG.write("=== Cleaning up resources ===")
+    _engine = None
+    if GLOBAL_LOG.is_open():
+        GLOBAL_LOG.write("Cleanup completed")
+    GLOBAL_LOG.close()
+
+
+def process_single_image(raw_path: str, width: int, height: int,
+                         output_dir: str, *, tta: bool = False,
+                         window: Optional[int] = None,
+                         per_class: bool = False) -> bool:
+    """One RAW -> its five artifacts in ``output_dir``; False on failure.
+
+    As in the reference (src/mask2polygon.cpp:183-188), a mask without
+    contours skips the overlay and the contour JSON.
+    """
+    if tta:
+        raise _not_ported("tta", "P9")
+    if window is not None:
+        raise _not_ported("sliding-window inference", "P9")
+    if per_class:
+        raise _not_ported("per-class JSON", "P6")
+    try:
+        eng = get_engine()
+        if eng is None:
+            raise RuntimeError("Engine not initialized")
+        base_name = os.path.splitext(os.path.basename(raw_path))[0]
+        GLOBAL_LOG.write(
+            f"\n=== Processing Image: {os.path.basename(raw_path)} ===")
+        os.makedirs(output_dir, exist_ok=True)
+        t_total = time.perf_counter()
+
+        raw = raw_io.read_raw(raw_path, width, height)
+        u8 = native.preprocess_u8(np.asarray(raw), eng.size)
+
+        t_inf = time.perf_counter()
+        mask = eng.to_host(eng.infer(u8[None]))()
+        inference_ms = int((time.perf_counter() - t_inf) * 1000)
+        GLOBAL_LOG.write(f"Inference time: {inference_ms} ms")
+
+        clean = eng.cleanup_masks(mask)
+        n_contours = native.emit_batch(
+            u8[None], clean, [output_dir], [base_name],
+            [os.path.basename(raw_path)], width, height, native.TIER_FULL)[0]
+        if n_contours < 0:
+            raise RuntimeError(f"writing the artifacts of {base_name} failed")
+        if n_contours == 0:
+            print("Warning: No Contours Detected")
+
+        total_ms = int((time.perf_counter() - t_total) * 1000)
+        GLOBAL_LOG.write(f"Total processing time: {total_ms} ms")
+        GLOBAL_LOG.write(f"Processing completed for: {base_name}")
+        GLOBAL_LOG.record(event="image", file=os.path.basename(raw_path),
+                          inference_ms=inference_ms, total_ms=total_ms)
+        print(f"Total processing time: {total_ms} ms")
+        return True
+    except Exception as e:
+        print(f"Processing error: {e}")
+        if GLOBAL_LOG.is_open():
+            GLOBAL_LOG.write(f"Processing error: {e}")
+        return False
+
+
+def _prefetch_map(pool, fn, items, depth: int):
+    """Run ``fn`` over ``items`` through ``pool`` with at most ``depth``
+    futures outstanding, yielding results in order (peak host memory
+    O(depth * batch))."""
+    items = list(items)
+    q: deque = deque()
+    idx = 0
+
+    def top_up():
+        nonlocal idx
+        while idx < len(items) and len(q) < depth:
+            q.append(pool.submit(fn, items[idx]))
+            idx += 1
+
+    top_up()
+    while q:
+        fut = q.popleft()
+        top_up()
+        yield fut.result()
+
+
+def process_batch(raw_paths: List[str], width: int, height: int,
+                  output_dirs: List[str], batch_size: int = 128,
+                  tier: str = "full", per_class: bool = False
+                  ) -> Tuple[int, int]:
+    """Batched pipeline over same-sized RAW slices; returns (ok, failed).
+
+    Two loader threads read and preprocess the next chunks while the device
+    runs; each batch's masks are copied back behind that batch alone, so the
+    host cleans and emits batch k while the device runs batch k+1.  A
+    ragged tail is padded to the next power-of-two batch (last slice
+    repeated, pad rows dropped), so at most log2(batch_size) + 1 batch
+    sizes are ever warmed up.  Per-file failures drop only that slice
+    (src/main.cpp:159-163).  ``tier`` is one of ARTIFACT_TIERS.
+    """
+    if per_class:
+        raise _not_ported("per-class JSON", "P6")
+    eng = get_engine()
+    if eng is None:
+        raise RuntimeError("Engine not initialized")
+    if tier not in ARTIFACT_TIERS:
+        raise ValueError(f"tier must be one of {ARTIFACT_TIERS}, got {tier!r}")
+    tier_bits = _TIER_BITS[tier]
+    n_ok = n_fail = 0
+    pending = []  # (wait for host masks, u8 batch, [(path, out_dir)])
+
+    def drain(entry):
+        nonlocal n_ok, n_fail
+        wait, u8s, metas = entry
+        n = len(metas)
+        masks = eng.cleanup_masks(wait()[:n])
+        for d in {d for _, d in metas}:
+            os.makedirs(d, exist_ok=True)
+        counts = native.emit_batch(
+            u8s[:n], masks, [d for _, d in metas],
+            [os.path.splitext(os.path.basename(p))[0] for p, _ in metas],
+            [os.path.basename(p) for p, _ in metas], width, height, tier_bits)
+        ok = int(np.sum(counts >= 0))
+        n_ok += ok
+        n_fail += n - ok
+
+    def load_chunk(cd):
+        chunk, dirs = cd
+        u8_list, good, n_bad = [], [], 0
+        for p, d in zip(chunk, dirs):
+            try:
+                u8_list.append(native.preprocess_u8(
+                    np.asarray(raw_io.read_raw(p, width, height)), eng.size))
+                good.append((p, d))
+            except Exception as e:
+                print(f"Processing error: {e}")
+                n_bad += 1
+        if not u8_list:
+            return None, good, n_bad
+        u8s = np.stack(u8_list)
+        n = u8s.shape[0]
+        if n < batch_size:
+            bucket = 1 << (n - 1).bit_length()
+            if bucket > n:
+                u8s = np.concatenate([u8s, np.repeat(u8s[-1:], bucket - n, 0)])
+        return u8s, good, n_bad
+
+    chunks = [(raw_paths[i: i + batch_size], output_dirs[i: i + batch_size])
+              for i in range(0, len(raw_paths), batch_size)]
+    with ThreadPoolExecutor(max_workers=2) as loaders:
+        for u8s, good, n_bad in _prefetch_map(loaders, load_chunk, chunks, 2):
+            n_fail += n_bad
+            if u8s is None:
+                continue
+            t_inf = time.perf_counter()
+            wait = eng.to_host(eng.infer(u8s))
+            GLOBAL_LOG.record(
+                event="batch", n=len(good),
+                dispatch_ms=round((time.perf_counter() - t_inf) * 1e3, 3))
+            pending.append((wait, u8s, good))
+            if len(pending) > 1:
+                drain(pending.pop(0))
+        while pending:
+            drain(pending.pop(0))
+    return n_ok, n_fail

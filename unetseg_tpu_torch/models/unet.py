@@ -1,0 +1,143 @@
+"""UNet forward pass, the port of ``unetseg_tpu/models/unet.py::apply``.
+
+NHWC end to end, as in the JAX package, so space-to-depth and depth-to-space
+are the same reshapes and the conv kernel reads channels-last.  The ten (for
+depth 2) 3x3 conv+ReLU stages go through ``ops.conv.conv3x3_bias_act``; the
+2x2 stride-2 up-conv and the 1x1 head stay matmuls, as JAX leaves them to
+``lax`` outside any Pallas kernel.
+
+The weights are cast once to the compute dtype when the module is moved
+(``module.to(dtype=...)``); JAX casts them per call, and both round each
+stored value once.  Bias adds of the up-conv and the head run in the compute
+dtype, and logits become float32 only at the end (unet.py:53-62, 224-227).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from unetseg_tpu_torch.config import ModelConfig
+from unetseg_tpu_torch.ops.conv import conv3x3_bias_act
+
+
+def stage_channels(cfg: ModelConfig) -> Sequence[int]:
+    """Encoder channel widths, e.g. (64, 128, 256, 512) for depth 4."""
+    return tuple(cfg.base_channels * (2 ** i) for i in range(cfg.depth))
+
+
+def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(N, H, W, C) -> (N, H/r, W/r, r*r*C), channels ordered (dy, dx, c)
+    as in JAX (not ``pixel_unshuffle``'s (c, dy, dx))."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // r, r, w // r, r, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h // r, w // r, r * r * c)
+
+
+def depth_to_space(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(N, H, W, r*r*C) -> (N, H*r, W*r, C), inverse of space_to_depth."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h, w, r, r, c // (r * r))
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h * r, w * r, c // (r * r))
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    n, h, w, c = x.shape
+    return x.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+class Conv3x3(nn.Module):
+    """3x3 SAME conv + bias + ReLU; weight HWIO (3, 3, C, D)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(3, 3, cin, cout),
+                                   requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv3x3_bias_act(x, self.weight, self.bias, relu=True)
+
+
+class DoubleConv(nn.Module):
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv1 = Conv3x3(cin, cout)
+        self.conv2 = Conv3x3(cout, cout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.conv1(x))
+
+
+class UpConv(nn.Module):
+    """2x2 stride-2 transposed conv as one matmul + reshape; weight
+    (C, 2*2*O) laid out (c, a, b, o) by checkpoint.params_from_jax."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cin, 4 * cout),
+                                   requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, h, w, _ = x.shape
+        o = self.bias.shape[0]
+        y = (x @ self.weight).reshape(n, h, w, 2, 2, o)
+        y = y.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, o)
+        return y + self.bias
+
+
+class DecoderStage(nn.Module):
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.up = UpConv(cin, cout)
+        self.conv1 = Conv3x3(2 * cout, cout)
+        self.conv2 = Conv3x3(cout, cout)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([skip, self.up(x)], dim=-1)  # [skip, up] (unet.py:205)
+        return self.conv2(self.conv1(x))
+
+
+class UNet(nn.Module):
+    """NHWC input in [0, 1] -> float32 logits (N, H, W, num_classes)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        chans = stage_channels(cfg)
+        bottleneck = cfg.base_channels * (2 ** cfg.depth)
+        cin = cfg.in_channels * cfg.stem * cfg.stem
+        self.encoder = nn.ModuleList()
+        for cout in chans:
+            self.encoder.append(DoubleConv(cin, cout))
+            cin = cout
+        self.bottleneck = DoubleConv(chans[-1], bottleneck)
+        self.decoder = nn.ModuleList()
+        cin = bottleneck
+        for cout in reversed(chans):
+            self.decoder.append(DecoderStage(cin, cout))
+            cin = cout
+        n_out = cfg.num_classes * cfg.stem * cfg.stem
+        self.head_weight = nn.Parameter(torch.zeros(chans[0], n_out),
+                                        requires_grad=False)
+        self.head_bias = nn.Parameter(torch.zeros(n_out), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.head_weight.dtype)
+        if self.cfg.stem > 1:
+            x = space_to_depth(x, self.cfg.stem)
+        skips = []
+        for stage in self.encoder:
+            x = stage(x)
+            skips.append(x)
+            x = max_pool_2x2(x)
+        x = self.bottleneck(x)
+        for stage, skip in zip(self.decoder, reversed(skips)):
+            x = stage(x, skip)
+        logits = x @ self.head_weight + self.head_bias
+        if self.cfg.stem > 1:
+            logits = depth_to_space(logits, self.cfg.stem)
+        return logits.float()
