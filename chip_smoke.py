@@ -6,20 +6,44 @@
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. Device: the card's name and power limit (nvidia-smi); no CUDA -> exit 1.
-2. Build: the conv kernel (nvcc, sm_90a) and the host C++ library, together.
+2. Build: the conv kernel, the CCL kernel (nvcc, sm_90a) and the host C++
+   library, all three at once.
 3. Kernel parity: the conv kernel against its plain PyTorch version on
-   slim4's ten conv shapes at batch 8, plus a ragged shape.
-4. Main path, with the launch counters set to 0 just before it:
-   ``initialize_engine`` on models/flagship_slim4.ckpt; ``process_batch`` on
-   256 synthetic 768² RAWs at batch 128, tier full; ``process_single_image``
-   on one RAW; bench.py's accuracy pool (seed 991, 32 slices) must reach
-   fg_iou_min >= 0.999; masks on two slices agree with the plain path run
-   on the CPU.  Every forward pass must launch the kernel exactly 10 times.
-5. Numbers: slices/s of the device pipeline (u8 -> mask, batch 128, CUDA
-   events), its device time by kernel and idle share (torch.profiler), and
-   per conv shape at batch 128 the kernel, library (F.conv2d, channels-last
-   bf16, without the ReLU) and plain times beside the bound.  The kernels
-   record sums each variant's times over the shapes of one forward.
+   slim4's ten conv shapes at batch 8, plus a ragged shape; the CCL kernel
+   (``cc_label`` and ``propagate_min``) bit for bit against its plain
+   version on the CCL test shapes at full size and a batch of 128 512²
+   50% speckles.
+4. Main path, host cleanup, with the launch counters set to 0 just before
+   it: ``initialize_engine`` on models/flagship_slim4.ckpt;
+   ``process_batch`` twice on 256 synthetic 768² RAWs at batch 128, tier
+   full; ``process_single_image`` on one RAW; bench.py's accuracy pool
+   (seed 991, 32 slices) must reach fg_iou_min >= 0.999; masks on two
+   slices agree with the plain path run on the CPU.  Every forward pass
+   must launch the conv kernel exactly 10 times and the CCL kernel never.
+   Then the CCL kernel against its plain version on a batch of 128 real
+   512² argmax masks, their inverses and their opened foregrounds.
+5. Main path, device cleanup, with the counters set to 0 just before it:
+   ``initialize_engine(..., device_postprocess=True)``, ``process_batch``
+   twice on the same RAWs, ``process_single_image``.  Every forward must
+   launch the conv kernel 10 times and the CCL kernel exactly 2 times; the
+   artifacts must be byte-equal to phase 4's; on the batch of 128 the
+   cleaned masks must be bit-equal to the host C++ ``postprocess_batch`` of
+   the same argmax masks (and on those masks with salt-and-pepper noise,
+   and on the speckle), with no host synchronisation in the cleanup.
+6. The TCP service with device cleanup on localhost, counters set to 0
+   just before it: ``init``, a directory ``process`` (32 RAWs, tier full),
+   a single-file ``process``, ``status``, ``metrics``, ``shutdown``; its
+   artifacts must be byte-equal to phase 4's for the same RAWs.
+7. Numbers: slices/s of the device pipeline (u8 -> mask, batch 128, CUDA
+   events) without and with device cleanup, the device time by kernel and
+   idle share of each (torch.profiler); per conv shape at batch 128 the
+   kernel, library (F.conv2d, channels-last bf16, without the ReLU) and
+   plain times beside the bound; the CCL kernel's and its plain version's
+   time per call on the real masks and on the speckle, beside its bound;
+   the whole device cleanup's time per batch beside the host C++ cleanup's
+   wall time.  The kernels record sums each conv variant's times over the
+   shapes of one forward, and the CCL kernel's over the two calls of one
+   cleanup batch.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -27,6 +51,7 @@ is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -48,8 +73,12 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 RTOL, ATOL = 1.6e-2, 1e-2
 REPLACES = {"conv3x3_bias_act": "unetseg_tpu/ops/pallas_conv.py:189",
-            "conv3x3_bias_act_small_c": "unetseg_tpu/ops/pallas_conv.py:123"}
+            "conv3x3_bias_act_small_c": "unetseg_tpu/ops/pallas_conv.py:123",
+            "cc_label": "unetseg_tpu/ops/cc_pallas.py:137"}
 SOURCE = "unetseg_tpu_torch/csrc/conv3x3.cu"
+CC_SOURCE = "unetseg_tpu_torch/csrc/cc_label.cu"
+N_RAWS = 256     # RAWs of each main path
+N_SERVICE = 32   # RAWs of the service's directory request
 
 
 def log(obj) -> None:
@@ -165,6 +194,95 @@ def check_artifacts(d, base):
         raise AssertionError(f"{base}: missing artifacts {missing}")
 
 
+def cc_cases(np):
+    """(name, bool mask) of the CCL test shapes at full size."""
+    spiral = np.zeros((64, 64), bool)
+    x0, y0, x1, y1 = 0, 0, 63, 63
+    while x0 < x1:
+        spiral[y0, x0:x1 + 1] = spiral[y1, x0:x1 + 1] = True
+        spiral[y0:y1 + 1, x1] = True
+        spiral[y0 + 2:y1 + 1, x0] = True
+        x0, y0, x1, y1 = x0 + 4, y0 + 4, x1 - 4, y1 - 4
+    serpentine = np.zeros((128, 128), bool)
+    for r in range(0, 128, 2):
+        serpentine[r, :] = True
+        if r + 1 < 128:
+            serpentine[r + 1, 127 if (r // 2) % 2 == 0 else 0] = True
+    diagonal = np.zeros((16, 16), bool)
+    diagonal[2, 2] = diagonal[3, 3] = diagonal[4, 4] = True
+    diagonal[10, 2] = diagonal[12, 4] = True
+    rng = np.random.default_rng(21)
+    cases = [("spiral", spiral), ("serpentine", serpentine),
+             ("diagonal", diagonal), ("empty", np.zeros((32, 32), bool)),
+             ("full", np.ones((32, 32), bool)),
+             ("blobs", np.random.default_rng(0).random((64, 64)) > 0.55)]
+    cases += [(f"odd{s}", rng.random(s) > 0.4)
+              for s in ((70, 63), (33, 90), (17, 15), (64, 1))]
+    return cases
+
+
+def check_cc(torch, cc, cc_kernel, name, fg, seed):
+    """K3 against its plain version on one (B, H, W) or (H, W) CUDA mask:
+    cc_label on the mask, propagate_min on random seeds over it.  Returns
+    the max abs difference (0, or the run fails)."""
+    got = cc_kernel.cc_label(fg)
+    want = cc.cc_label(fg)
+    size = fg.shape[-2] * fg.shape[-1]
+    g = torch.Generator(device=fg.device).manual_seed(seed)
+    seeds = torch.randint(0, size, fg.shape, generator=g, device=fg.device,
+                          dtype=torch.int32)
+    init = torch.where(fg, seeds, size)
+    got_p = cc_kernel.propagate_min(init, size)
+    want_p = cc_kernel.propagate_min_plain(init, size)
+    torch.cuda.synchronize()
+    err = max((got.long() - want.long()).abs().max().item(),
+              (got_p.long() - want_p.long()).abs().max().item())
+    log({"phase": "cc_parity", "case": name, "shape": list(fg.shape),
+         "fg_share": fg.float().mean().item(),
+         "components": int((want.reshape(-1, size) == torch.arange(
+             size, device=fg.device)).sum().item()),
+         "max_abs_err": err})
+    if err or got.dtype != torch.int32 or got.shape != fg.shape:
+        raise AssertionError(f"cc kernel differs from its plain version on "
+                             f"{name}: max abs err {err}")
+    return err
+
+
+def cc_bound_ms(fg) -> float:
+    """A bool mask read once and the int32 labels written once."""
+    return fg.numel() * 5 / PEAK_HBM_BYTES * 1e3
+
+
+def compare_dirs(a, b, names):
+    """The named files of two directories are byte-equal."""
+    for f in names:
+        with open(os.path.join(a, f), "rb") as fa, \
+                open(os.path.join(b, f), "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{f}: {a} and {b} differ")
+
+
+def run_batch(engine, paths, size, out_dir):
+    """process_batch on ``paths``; returns its wall time in s."""
+    t0 = time.perf_counter()
+    ok, failed = engine.process_batch(paths, size, size,
+                                      [out_dir] * len(paths), batch_size=128,
+                                      tier="full")
+    if (ok, failed) != (len(paths), 0):
+        raise AssertionError(f"process_batch: {ok} ok, {failed} failed")
+    return time.perf_counter() - t0
+
+
+def check_launches(launches, forwards, k3_per_forward):
+    if launches["conv3x3_bias_act"] != 6 * forwards or \
+            launches["conv3x3_bias_act_small_c"] != 4 * forwards:
+        raise AssertionError(f"{launches} launches over {forwards} forwards: "
+                             f"want 10 conv per forward (6 + 4)")
+    if launches["cc_label"] != k3_per_forward * forwards:
+        raise AssertionError(f"{launches} launches over {forwards} forwards: "
+                             f"want {k3_per_forward} cc_label per forward")
+
+
 def main() -> int:
     import torch
 
@@ -175,13 +293,20 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from unetseg_tpu_torch import checkpoint, engine
+    from unetseg_tpu_torch import checkpoint, engine, service
     from unetseg_tpu_torch.data import synth_batch, synth_slice
     from unetseg_tpu_torch.io import native, raw as raw_io
     from unetseg_tpu_torch.metrics import foreground_iou
     from unetseg_tpu_torch.models import registry
-    from unetseg_tpu_torch.ops import conv
+    from unetseg_tpu_torch.ops import cc, cc_kernel, conv, morphology, postprocess
     from unetseg_tpu_torch.ops.preprocess import preprocess_oracle_u8
+
+    def reset_launches():
+        conv.reset_launches()
+        cc_kernel.reset_launches()
+
+    def read_launches():
+        return {**conv.LAUNCHES, "cc_label": sum(cc_kernel.LAUNCHES.values())}
 
     # -- 1. device ---------------------------------------------------------
     smi = subprocess.run(
@@ -197,33 +322,40 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False  # plain version: full f32
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # -- 2. build (kernel and host library together) -----------------------
+    # -- 2. build (both kernels and the host library together) -------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for fut in [pool.submit(conv.load), pool.submit(native.load)]:
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        for fut in [pool.submit(conv.load), pool.submit(cc_kernel.load),
+                    pool.submit(native.load)]:
             fut.result()
     log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3)})
 
     # -- 3. kernel parity on the card --------------------------------------
     max_err = check_parity(torch, conv, dev, SLIM4_CONVS + EXTRA_CONVS, 8)
+    cc_err = 0
+    for i, (name, fg) in enumerate(cc_cases(np)):
+        cc_err = max(cc_err, check_cc(torch, cc, cc_kernel, name,
+                                      torch.from_numpy(fg).to(dev), 300 + i))
+    speckle = torch.from_numpy(np.random.default_rng(5).random(
+        (128, 512, 512)) > 0.5).to(dev)
+    cc_err = max(cc_err, check_cc(torch, cc, cc_kernel, "speckle", speckle,
+                                  310))
 
-    # -- 4. main path --------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        conv.reset_launches()
+        in_dir = os.path.join(tmp, "in")
+        os.makedirs(in_dir)
+        size = 768
+        paths = write_raws(raw_io, synth_slice, np, in_dir, N_RAWS, size)
+        host_out = os.path.join(tmp, "out_host")
+        dev_out = os.path.join(tmp, "out_device")
+
+        # -- 4. main path, host cleanup ---------------------------------------
+        reset_launches()
         if not engine.initialize_engine(CKPT, log_dir=os.path.join(tmp, "log")):
             raise AssertionError("initialize_engine returned False")
         eng = engine.get_engine()
-        size = 768
-        in_dir, out_dir = os.path.join(tmp, "in"), os.path.join(tmp, "out")
-        os.makedirs(in_dir)
-        paths = write_raws(raw_io, synth_slice, np, in_dir, 256, size)
-        t0 = time.perf_counter()
-        ok, failed = engine.process_batch(paths, size, size, [out_dir] * 256,
-                                          batch_size=128, tier="full")
-        batch_s = time.perf_counter() - t0
-        if (ok, failed) != (256, 0):
-            raise AssertionError(f"process_batch: {ok} ok, {failed} failed")
-        check_artifacts(out_dir, "slice_017")
+        host_batch_s = [run_batch(engine, paths, size, host_out) for _ in range(2)]
+        check_artifacts(host_out, "slice_017")
         single_dir = os.path.join(tmp, "single")
         t0 = time.perf_counter()
         if not engine.process_single_image(paths[3], size, size, single_dir):
@@ -235,47 +367,174 @@ def main() -> int:
         u8v = np.stack([preprocess_oracle_u8(r, 512) for r in raws])
         pred = eng.to_host(eng.infer(u8v))()
         ious = [foreground_iou(pred[i], labels[i]) for i in range(32)]
-        launches = dict(conv.LAUNCHES)
+        launches = read_launches()
         forwards = eng.forwards
-    log({"phase": "main_path", "process_batch_256_s": batch_s,
-         "process_single_image_s": single_s, "forwards": forwards,
-         "launches": launches, "fg_iou_mean": float(np.mean(ious)),
-         "fg_iou_min": float(np.min(ious)), **card})
-    if launches["conv3x3_bias_act"] != 6 * forwards or \
-            launches["conv3x3_bias_act_small_c"] != 4 * forwards:
-        raise AssertionError(f"{launches} launches over {forwards} forwards: "
-                             f"want 10 per forward (6 + 4)")
-    if min(ious) < 0.999:
-        raise AssertionError(f"fg_iou_min {min(ious)} < 0.999")
+        log({"phase": "main_path", "cleanup": "host",
+             "process_batch_256_s": host_batch_s,
+             "process_single_image_s": single_s, "forwards": forwards,
+             "launches": launches, "fg_iou_mean": float(np.mean(ious)),
+             "fg_iou_min": float(np.min(ious)), **card})
+        check_launches(launches, forwards, 0)
+        if min(ious) < 0.999:
+            raise AssertionError(f"fg_iou_min {min(ious)} < 0.999")
 
-    # The same model on the CPU (plain conv) on two slices at 256².
+        # The same model on the CPU (plain conv) on two slices at 256².
+        params, cfg = checkpoint.load(CKPT)
+        cpu_model = registry.build(params, cfg, device="cpu")
+        x = torch.from_numpy(np.stack([preprocess_oracle_u8(r, 256)
+                                       for r in raws[:2]])).float()[..., None] / 255
+        with torch.inference_mode():
+            want = torch.argmax(cpu_model(x), -1)
+            got_logits = eng.model(x.to(dev))
+            got = torch.argmax(got_logits, -1).cpu()
+        if not (got_logits.shape == (2, 256, 256, 3)
+                and torch.isfinite(got_logits).all()):
+            raise AssertionError("device logits: wrong shape or non-finite")
+        agree = (got == want).float().mean().item()
+        log({"phase": "cpu_reference", "mask_agreement": agree})
+        if agree < 0.999:
+            raise AssertionError(f"device vs CPU masks agree on {agree} < 0.999")
+
+        # A batch of 128 real argmax masks: K3 parity on what serving feeds it.
+        batch = 128
+        raws128, _ = synth_batch(np.random.default_rng(77), batch)
+        u8_real = torch.from_numpy(np.stack(
+            [native.preprocess_u8(r, 512) for r in raws128])).to(dev)
+        masks = eng._masks(u8_real)
+        inv = masks != postprocess.FOREGROUND_VALUE
+        opened = morphology.open_(~inv, postprocess.MORPH_KERNEL_SIZE)
+        for name, fg, seed in (("real_inverse", inv, 320),
+                               ("real_opened_fg", opened, 321)):
+            cc_err = max(cc_err, check_cc(torch, cc, cc_kernel, name, fg, seed))
+
+        # -- 5. main path, device cleanup ----------------------------------
+        reset_launches()
+        if not engine.initialize_engine(CKPT, log_dir=os.path.join(tmp, "log"),
+                                        device_postprocess=True):
+            raise AssertionError("initialize_engine(device_postprocess=True) "
+                                 "returned False")
+        eng = engine.get_engine()
+        dev_batch_s = [run_batch(engine, paths, size, dev_out) for _ in range(2)]
+        single_dev = os.path.join(tmp, "single_device")
+        t0 = time.perf_counter()
+        if not engine.process_single_image(paths[3], size, size, single_dev):
+            raise AssertionError("process_single_image returned False")
+        single_dev_s = time.perf_counter() - t0
+        dev_launches = read_launches()
+        dev_forwards = eng.forwards
+        log({"phase": "main_path", "cleanup": "device",
+             "process_batch_256_s": dev_batch_s,
+             "process_single_image_s": single_dev_s,
+             "forwards": dev_forwards, "launches": dev_launches, **card})
+        check_launches(dev_launches, dev_forwards, 2)
+        # A slice without contours has no overlay and no contour JSON.
+        names = sorted(os.listdir(host_out))
+        log({"phase": "artifacts", "host_cleanup": len(names),
+             "device_cleanup": len(os.listdir(dev_out)),
+             "contour_jsons": sum(n.endswith(".json") and not n.endswith(
+                 "_sizes.json") for n in names)})
+        if len(names) < 3 * N_RAWS or names != sorted(os.listdir(dev_out)):
+            raise AssertionError("device and host cleanup wrote different "
+                                 "artifact sets")
+        compare_dirs(host_out, dev_out, names)
+        compare_dirs(single_dir, single_dev, sorted(os.listdir(single_dir)))
+
+        # Batches of 128: device cleanup == host C++ cleanup, bit for bit,
+        # and the cleanup never waits on the card.  The real masks, the same
+        # with 1% salt and 1% pepper (holes to fill, specks to drop), and the
+        # speckle as a mask.
+        masks = eng._masks(u8_real)
+        masks_np = masks.cpu().numpy()
+        if not torch.equal(eng._pipeline(u8_real),
+                           postprocess.postprocess_masks(masks)):
+            raise AssertionError("pipeline and postprocess_masks disagree")
+        noise = torch.rand(masks.shape, generator=torch.Generator(
+            device=dev).manual_seed(330), device=dev)
+        salted = torch.where(noise < 0.01, 2, torch.where(noise < 0.02, 0,
+                                                          masks)).to(torch.uint8)
+        for name, m in (("real", masks), ("salt_pepper", salted),
+                        ("speckle", (speckle * 2).to(torch.uint8))):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                cleaned = postprocess.postprocess_masks(m)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            m_np = m.cpu().numpy()
+            host_cleaned = native.postprocess_batch(m_np)
+            same = np.array_equal(cleaned.cpu().numpy(), host_cleaned)
+            log({"phase": "device_cleanup_parity", "masks": name,
+                 "batch": m.shape[0], "bit_equal": same,
+                 "pixels_changed_by_cleanup": int(
+                     (host_cleaned != np.where(m_np == 2, 2, 0)).sum()),
+                 "fg_share": float((host_cleaned == 2).mean())})
+            if not same:
+                raise AssertionError(f"device cleanup differs from the host "
+                                     f"C++ cleanup on the {name} masks")
+
+        # -- 6. the TCP service, device cleanup ------------------------------
+        svc_in = os.path.join(tmp, "svc_in")
+        svc_out = os.path.join(tmp, "svc_out")
+        os.makedirs(svc_in)
+        for p in paths[:N_SERVICE]:
+            shutil.copy(p, svc_in)
+        reset_launches()
+        svc = service.SegmentationService(port=0, device_postprocess=True)
+        addr = svc.start()
+        try:
+            def ask(req):
+                resp = service.request(addr, req, timeout=300)
+                log({"phase": "service", "cmd": req["cmd"],
+                     "resp": resp if req["cmd"] != "metrics" else
+                     {"ok": resp["ok"], "records": len(resp["records"])}})
+                if not resp.get("ok"):
+                    raise AssertionError(f"service {req['cmd']}: {resp}")
+                return resp
+
+            ask({"cmd": "init", "cache": CKPT})
+            svc_eng = engine.get_engine()
+            r = ask({"cmd": "process", "path": svc_in, "width": size,
+                     "height": size, "output_dir": svc_out, "tier": "full"})
+            if r["processed"] != N_SERVICE or r["failed"]:
+                raise AssertionError(f"service directory request: {r}")
+            ask({"cmd": "process", "path": paths[5], "width": size,
+                 "height": size, "output_dir": os.path.join(tmp, "svc_one")})
+            st = ask({"cmd": "status"})
+            if not (st["initialized"] and st["device_postprocess"]
+                    and st["processed"] == N_SERVICE + 1):
+                raise AssertionError(f"service status: {st}")
+            if not ask({"cmd": "metrics", "n": 5})["records"]:
+                raise AssertionError("service metrics: no records")
+            svc_launches = read_launches()
+            svc_forwards = svc_eng.forwards
+            ask({"cmd": "shutdown"})
+        finally:
+            svc.stop()
+        log({"phase": "service_path", "forwards": svc_forwards,
+             "launches": svc_launches})
+        check_launches(svc_launches, svc_forwards, 2)
+        svc_names = sorted(os.listdir(svc_out))
+        bases = tuple(os.path.basename(p)[:-len(".raw")] + s
+                      for p in paths[:N_SERVICE] for s in ("_", "."))
+        if svc_names != [n for n in names if n.startswith(bases)]:
+            raise AssertionError(f"service wrote {len(svc_names)} artifacts, "
+                                 f"not those of the host cleanup")
+        compare_dirs(host_out, svc_out, svc_names)
+
+    # -- 7. numbers ----------------------------------------------------------
+    # The device-cleanup engine was torn down with the service; rebuild it
+    # without the log to time the pipeline with and without the cleanup.
     params, cfg = checkpoint.load(CKPT)
-    cpu_model = registry.build(params, cfg, device="cpu")
-    x = torch.from_numpy(np.stack([preprocess_oracle_u8(r, 256)
-                                   for r in raws[:2]])).float()[..., None] / 255
-    with torch.inference_mode():
-        want = torch.argmax(cpu_model(x), -1)
-        got_logits = eng.model(x.to(dev))
-        got = torch.argmax(got_logits, -1).cpu()
-    if not (got_logits.shape == (2, 256, 256, 3)
-            and torch.isfinite(got_logits).all()):
-        raise AssertionError("device logits: wrong shape or non-finite")
-    agree = (got == want).float().mean().item()
-    log({"phase": "cpu_reference", "mask_agreement": agree})
-    if agree < 0.999:
-        raise AssertionError(f"device vs CPU masks agree on {agree} < 0.999")
-
-    # -- 5. numbers ----------------------------------------------------------
-    batch = 128
-    u8 = torch.from_numpy(np.random.default_rng(0).integers(
-        0, 256, (batch, 512, 512), dtype=np.uint8)).to(dev)
+    eng = engine.InferenceEngine(params, cfg)
+    eng_dev = engine.InferenceEngine(params, cfg, device_postprocess=True)
     iters = 20
-    pipe_ms = time_ms(torch, lambda: eng._pipeline(u8), iters)
-    log({"phase": "throughput", "batch": batch,
-         "slices_per_s": batch / pipe_ms * 1e3, "ms_per_batch": pipe_ms,
-         **card})
-    log({"phase": "profile", **profile_pipeline(torch, lambda: eng._pipeline(u8)),
-         **card})
+    for label, e in (("host_cleanup", eng), ("device_cleanup", eng_dev)):
+        pipe_ms = time_ms(torch, lambda: e._pipeline(u8_real), iters)
+        log({"phase": "throughput", "pipeline": label, "batch": batch,
+             "slices_per_s": batch / pipe_ms * 1e3, "ms_per_batch": pipe_ms,
+             **card})
+        log({"phase": "profile", "pipeline": label,
+             **profile_pipeline(torch, lambda: e._pipeline(u8_real)), **card})
 
     per_variant = {}
     for i, shape in enumerate(SLIM4_CONVS):
@@ -312,7 +571,39 @@ def main() -> int:
             "bound_by": ("operations" if acc["flop_ms"] >= acc["byte_ms"]
                          else "bytes"),
             "library_ms": acc["library_ms"]})
-    engine.cleanup_resources()
+
+    # K3 per call at batch 128: the two calls of one cleanup batch on the
+    # real masks (the inverse, then the opened foreground), and the speckle.
+    cc_sum = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for name, fg in (("real_inverse", inv), ("real_opened_fg", opened),
+                     ("speckle", speckle)):
+        k_ms = time_ms(torch, lambda: cc_kernel.cc_label(fg), iters)
+        plain_ms = time_ms(torch, lambda: cc.cc_label(fg), 3, warmup=1)
+        bound = cc_bound_ms(fg)
+        log({"phase": "cc_time", "input": name, "shape": list(fg.shape),
+             "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": "bytes", "library_ms": None, **card})
+        if name != "speckle":
+            for key, val in (("ms", k_ms), ("plain_ms", plain_ms),
+                             ("bound_ms", bound)):
+                cc_sum[key] += val
+    dev_clean_ms = time_ms(torch, lambda: postprocess.postprocess_masks(masks),
+                           iters)
+    host_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        native.postprocess_batch(masks_np)
+        host_s.append(time.perf_counter() - t0)
+    log({"phase": "cleanup_time", "batch": batch,
+         "device_ms_per_batch": dev_clean_ms,
+         "host_cpp_ms_per_batch": [t * 1e3 for t in host_s],
+         "host_cpus": os.cpu_count(), **card})
+    kernels.append({
+        "name": "cc_label", "route": "cuda", "source": CC_SOURCE,
+        "replaces": REPLACES["cc_label"], "launches": dev_launches["cc_label"],
+        "max_abs_err": cc_err, "ms": cc_sum["ms"],
+        "plain_ms": cc_sum["plain_ms"], "bound_ms": cc_sum["bound_ms"],
+        "bound_by": "bytes", "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

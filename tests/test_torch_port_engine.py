@@ -4,7 +4,9 @@ A small float32 checkpoint written by the JAX package serves both engines on
 the same RAWs (of a size other than the model's input, so the JSON
 coordinate scaling is exercised).  ``process_batch`` artifacts must be
 byte-equal to the JAX native emitter's; ``process_single_image`` JSONs
-byte-equal and PNGs pixel-equal (JAX writes its PNGs through cv2).
+byte-equal and PNGs pixel-equal (JAX writes its PNGs through cv2).  The
+same holds in the all-device mode (``device_postprocess=True``), whose
+cleanup runs in the pipeline on both sides.
 """
 
 import dataclasses
@@ -123,8 +125,6 @@ def test_entry_points_default_to_cuda_and_fail_without_it(ckpt, tmp_path):
 
 def test_unported_modes_raise(ckpt, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.initialize_engine(ckpt, device="cpu", device_postprocess=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.initialize_engine(ckpt, device="cpu", cascade_ckpt=ckpt)
     for kw in ({"tta": True}, {"window": 256}, {"per_class": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -135,3 +135,94 @@ def test_unported_modes_raise(ckpt, tmp_path):
     with pytest.raises(NotImplementedError, match="P10"):
         engine.InferenceEngine(params, dataclasses.replace(cfg, arch="unetpp"),
                                device="cpu")
+
+
+@pytest.fixture()
+def both_device_post(ckpt, tmp_path):
+    assert jax_engine.initialize_engine(ckpt, log_dir=str(tmp_path / "jlog"),
+                                        device_postprocess=True)
+    assert engine.initialize_engine(ckpt, log_dir=str(tmp_path / "plog"),
+                                    device="cpu", device_postprocess=True)
+    yield engine.get_engine()
+    jax_engine.cleanup_resources()
+    engine.cleanup_resources()
+
+
+def _assert_same_files(a_dir, b_dir, n_files):
+    names = _files(a_dir)
+    assert names == _files(b_dir) and len(names) == n_files, names
+    for f in names:
+        with open(os.path.join(a_dir, f), "rb") as a, \
+                open(os.path.join(b_dir, f), "rb") as b:
+            assert a.read() == b.read(), f
+
+
+def test_device_postprocess_matches_jax(both_device_post, tmp_path):
+    eng = both_device_post
+    assert eng.device_postprocess
+    paths = _write_raws(tmp_path, 3)
+    jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jax_engine.process_batch(paths, W, H, [jdir] * 3,
+                                    emitter="native") == (3, 0)
+    assert engine.process_batch(paths, W, H, [pdir] * 3) == (3, 0)
+    _assert_same_files(jdir, pdir, 15)
+
+    # The pipeline returns cleaned masks and the host cleanup is identity.
+    u8 = np.stack([np.full((64, 64), 40 * i, np.uint8) for i in range(2)])
+    masks = eng.to_host(eng.infer(u8))()
+    assert set(np.unique(masks)) <= {0, 2}
+    np.testing.assert_array_equal(eng.cleanup_masks(masks), masks)
+
+    raw = paths[0]
+    j1, p1 = str(tmp_path / "jax1"), str(tmp_path / "port1")
+    assert jax_engine.process_single_image(raw, W, H, j1)
+    assert engine.process_single_image(raw, W, H, p1)
+    names = _files(j1)
+    assert names == _files(p1) and len(names) == 5, names
+    for f in names:
+        a, b = os.path.join(j1, f), os.path.join(p1, f)
+        if f.endswith(".json"):
+            assert open(a, "rb").read() == open(b, "rb").read(), f
+        else:
+            np.testing.assert_array_equal(
+                cv2.imread(b, cv2.IMREAD_UNCHANGED),
+                cv2.imread(a, cv2.IMREAD_UNCHANGED), err_msg=f)
+
+
+def test_device_and_host_cleanup_write_the_same_bytes(ckpt, tmp_path):
+    paths = _write_raws(tmp_path, 3)
+    outs = []
+    for dev_post in (False, True):
+        assert engine.initialize_engine(
+            ckpt, log_dir=str(tmp_path / "log"), device="cpu",
+            device_postprocess=dev_post)
+        outs.append(str(tmp_path / f"out_{dev_post}"))
+        assert engine.process_batch(paths, W, H, [outs[-1]] * 3) == (3, 0)
+        engine.cleanup_resources()
+    _assert_same_files(*outs, 15)
+
+
+def test_eng_emitter_and_overlap_parameters(ckpt, tmp_path):
+    """``eng=`` serves without a global engine; both emitters write the same
+    bytes; ``overlap`` without ``window`` is ignored, as in JAX."""
+    params, cfg = checkpoint.load(ckpt)
+    eng = engine.InferenceEngine(params, cfg, device="cpu")
+    assert engine.get_engine() is None
+    paths = _write_raws(tmp_path, 2)
+    outs = {}
+    for emitter in engine.EMITTERS:
+        outs[emitter] = str(tmp_path / emitter)
+        assert engine.process_batch(paths, W, H, [outs[emitter]] * 2,
+                                    eng=eng, emitter=emitter) == (2, 0)
+    _assert_same_files(outs["cv2"], outs["native"], 10)
+    with pytest.raises(ValueError, match="emitter"):
+        engine.process_batch(paths, W, H, [outs["cv2"]] * 2, eng=eng,
+                             emitter="pil")
+    single = str(tmp_path / "single")
+    assert engine.process_single_image(paths[0], W, H, single, overlap=32,
+                                       eng=eng)
+    for f in _files(single):
+        with open(os.path.join(single, f), "rb") as a, \
+                open(os.path.join(outs["cv2"], f), "rb") as b:
+            assert a.read() == b.read(), f
+    assert engine.get_engine() is None

@@ -1,5 +1,5 @@
-"""``unetseg_tpu_torch`` and every submodule import without JAX, flax or
-the JAX package."""
+"""``unetseg_tpu_torch``, every submodule and ``chip_smoke.py`` import
+without JAX, flax or the JAX package."""
 
 import os
 import subprocess
@@ -26,20 +26,24 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n, bad = proc.stdout.strip().split(" ", 1)
-    assert int(n) >= 14 and bad == "[]", proc.stdout
+    assert int(n) >= 25 and bad == "[]", proc.stdout
 
 
 def test_port_sources_name_no_jax():
-    """No module of the port even mentions importing the JAX side."""
+    """No module of the port, nor ``chip_smoke.py``, even mentions
+    importing the JAX side."""
     import unetseg_tpu_torch
 
     root = os.path.dirname(unetseg_tpu_torch.__file__)
+    sources = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _, files in os.walk(root):
-        for f in files:
-            if f.endswith(".py"):
-                src = open(os.path.join(dirpath, f)).read()
-                for word in ("import jax", "from jax", "import flax",
-                             "from flax", "from unetseg_tpu ",
-                             "from unetseg_tpu.", "import unetseg_tpu\n",
-                             "import unetseg_tpu."):
-                    assert word not in src, (f, word)
+        sources += [os.path.join(dirpath, f) for f in files
+                    if f.endswith(".py")]
+    assert len(sources) >= 26
+    for path in sources:
+        src = open(path).read()
+        for word in ("import jax", "from jax", "import flax",
+                     "from flax", "from unetseg_tpu ",
+                     "from unetseg_tpu.", "import unetseg_tpu\n",
+                     "import unetseg_tpu."):
+            assert word not in src, (path, word)

@@ -1,7 +1,7 @@
 """Build a shared library from sources at first use, once per content.
 
-Both native libraries of the port (the host C++ library and the CUDA conv
-kernel) are compiled here: the output name carries a hash of the command and
+Every native library of the port (the host C++ library and the CUDA
+kernels) is compiled here: the output name carries a hash of the command and
 of every source, so an edited source is never served from a stale library.
 Concurrent builds (pytest-xdist workers, threads) serialise on a file
 lock, and the library appears under its final name only through
@@ -13,10 +13,22 @@ from __future__ import annotations
 import fcntl
 import hashlib
 import os
+import shutil
 import subprocess
 from typing import Sequence
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+#: nvcc flags of every CUDA kernel of the port: Hopper only, plain C ABI.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+
+def nvcc() -> str:
+    """Path of nvcc; raises if there is none (the kernels cannot be built)."""
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
 
 
 def build_shared(name: str, compiler: Sequence[str], sources: Sequence[str],

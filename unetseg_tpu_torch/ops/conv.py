@@ -18,19 +18,16 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 import threading
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
-from unetseg_tpu_torch._build import build_shared
+from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "conv3x3.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
 
 #: Kernel launches per variant since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"conv3x3_bias_act": 0,
@@ -45,20 +42,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the conv kernel cannot be built")
-    return nvcc
-
-
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use.  Raises if it cannot be."""
     global _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build_shared(
-                "libconv3x3", [_nvcc(), *NVCC_FLAGS], [SOURCE]))
+                "libconv3x3", [nvcc(), *NVCC_FLAGS], [SOURCE]))
             lib.utconv3x3_bf16.restype = ctypes.c_int
             lib.utconv3x3_bf16.argtypes = (
                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
