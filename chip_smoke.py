@@ -6,8 +6,8 @@
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. Device: the card's name and power limit (nvidia-smi); no CUDA -> exit 1.
-2. Build: the conv kernel, the CCL kernel (nvcc, sm_90a) and the host C++
-   library, all three at once.
+2. Build: all four kernel sources (conv, CCL, fused last decoder level,
+   halo copy; nvcc, sm_90a) and the host C++ library, all at once.
 3. Kernel parity: the conv kernel against its plain PyTorch version on
    slim4's ten conv shapes at batch 8, plus a ragged shape; the CCL kernel
    (``cc_label`` and ``propagate_min``) bit for bit against its plain
@@ -45,6 +45,33 @@ Phases, each of which fails the run (non-zero exit) on error:
    shapes of one forward, and the CCL kernel's over the two calls of one
    cleanup batch.
 
+8. Flagship parity: the conv kernel against its plain version on the 16
+   unfused conv shapes of the flagship ``ModelConfig()`` (depth 4, base 64,
+   stem 1) at batch 2, C = 1 and a stem-2 C = 4 included (both reach the
+   kernel zero-padded to 16 channels); the fused last decoder level (K6)
+   against ``dec1_fused_plain`` at B = 2 and 32, 512², C = 64, on random
+   inputs (masks equal except near ties, ``dec1.near_tie``), on small-
+   integer inputs whose every f32 sum is exact and whose logits tie (bit
+   for bit), and on odd sizes and other C; the halo copies (K4, K5) bit for
+   bit against the slice.
+9. Flagship main path, counters set to 0 just before it:
+   ``checkpoint.create(ModelConfig(), seed=0)`` with its head bias centred
+   on the RAWs' logits (so every class and contour occurs), then
+   ``initialize_engine``, ``process_batch`` on 64 synthetic 768² RAWs at
+   batch 32, tier full, and ``process_single_image``: all five artifacts;
+   per forward 13 K1, 3 K2, 1 K6 and no K3 launches; masks on two slices
+   agree with the CPU path on >= 99.99% of pixels; the TCP service's
+   ``init`` on that checkpoint and one single-file ``process``.
+10. Flagship numbers: the device pipeline at batch 32 (CUDA events) and its
+   device time by kernel and idle share (torch.profiler); per conv shape at
+   batch 32 the kernel and ``F.conv2d`` times beside the bound; K6 on the
+   real last-level inputs of a batch of 32 beside its bound, its plain
+   version, the port's unfused sequence (``UpConv``, ``cat``, K1, K2, head,
+   argmax) and the cuDNN/cuBLAS sequence (no single PyTorch call computes
+   it); K4 and K5 beside their bound and ``.contiguous()``; then
+   ``unetseg_tpu_torch.benchmarks.exp_bw.main()`` once, with the copy
+   counters set to 0 just before it (the probe is K4's and K5's path).
+
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -74,11 +101,43 @@ PEAK_HBM_BYTES = 3.35e12
 RTOL, ATOL = 1.6e-2, 1e-2
 REPLACES = {"conv3x3_bias_act": "unetseg_tpu/ops/pallas_conv.py:189",
             "conv3x3_bias_act_small_c": "unetseg_tpu/ops/pallas_conv.py:123",
-            "cc_label": "unetseg_tpu/ops/cc_pallas.py:137"}
+            "cc_label": "unetseg_tpu/ops/cc_pallas.py:137",
+            "copy_elem": "benchmarks/exp_bw.py:49",
+            "copy_blocked": "benchmarks/exp_bw.py:74",
+            "dec1_fused": "benchmarks/exp_dec1_ablate.py:150"}
 SOURCE = "unetseg_tpu_torch/csrc/conv3x3.cu"
 CC_SOURCE = "unetseg_tpu_torch/csrc/cc_label.cu"
+DEC1_SOURCE = "unetseg_tpu_torch/csrc/dec1_fused.cu"
+COPY_SOURCE = "unetseg_tpu_torch/csrc/halo_copy.cu"
 N_RAWS = 256     # RAWs of each main path
 N_SERVICE = 32   # RAWs of the service's directory request
+# (H, W, C, D) of the flagship's 16 unfused 3x3 convs at a 512² input, in
+# forward order (the last decoder level's two run inside K6), and a stem-2
+# model's first conv (C = 4).
+FLAGSHIP_CONVS = [(512, 512, 1, 64), (512, 512, 64, 64), (256, 256, 64, 128),
+                  (256, 256, 128, 128), (128, 128, 128, 256),
+                  (128, 128, 256, 256), (64, 64, 256, 512), (64, 64, 512, 512),
+                  (32, 32, 512, 1024), (32, 32, 1024, 1024),
+                  (64, 64, 1024, 512), (64, 64, 512, 512),
+                  (128, 128, 512, 256), (128, 128, 256, 256),
+                  (256, 256, 256, 128), (256, 256, 128, 128)]
+STEM2_CONV = (256, 256, 4, 64)
+N_FLAGSHIP = 64  # RAWs of the flagship path
+FLAGSHIP_BATCH = 32
+# Flagship masks on the card against the CPU path: agreement, and the
+# near-tie margin (dec1.near_tie's ulps) within which every differing pixel
+# must lie.
+CPU_AGREEMENT = 0.995
+CPU_TIE_ULPS = 4
+# K6 parity cases: (name, (N, H, W, C, classes, seed), exact).
+K6_CASES = [("random", (2, 512, 512, 64, 3, 1), False),
+            ("exact_ties", (1, 256, 256, 64, 3, 2), True),
+            ("random_b32", (32, 512, 512, 64, 3, 3), False),
+            ("odd_50x38", (1, 50, 38, 64, 3, 4), False),
+            ("c16_k3", (2, 64, 64, 16, 3, 5), False),
+            ("c32_k5", (2, 64, 96, 32, 5, 6), False),
+            ("c48_k8", (1, 48, 48, 48, 8, 7), False),
+            ("c96_k2", (1, 34, 66, 96, 2, 8), False)]
 
 
 def log(obj) -> None:
@@ -283,6 +342,364 @@ def check_launches(launches, forwards, k3_per_forward):
                              f"want {k3_per_forward} cc_label per forward")
 
 
+def k6_inputs(torch, n, h, w, c, k, device, seed, exact=False):
+    """Operands of the fused last decoder level at its natural layouts, bf16.
+
+    Random: ReLU'd normal activations, He-scaled weights.  ``exact``: 0/1
+    activations, sparse {-1, 0, 1} weights and integer biases, so every f32
+    sum in any order is exact, and head columns 0 and 1 equal, so classes 0
+    and 1 tie exactly wherever they lead: kernel and plain version must then
+    agree bit for bit, first-max rule included."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    def ternary(*shape):  # {-1, 0, 1}, nonzero with probability 1/8
+        u = torch.rand(shape, generator=g, device=device)
+        return (u < 1 / 16).float() - (u > 15 / 16).float()
+
+    if exact:
+        x = (rand(n, h // 2, w // 2, 2 * c) > 0).float()
+        skip = (rand(n, h, w, c) > 0).float()
+        ops = [x, skip, ternary(2 * c, 4 * c), ternary(c), ternary(3, 3, 2 * c, c),
+               ternary(c), ternary(3, 3, c, c), ternary(c),
+               (rand(c, k) * 1.2).round().clamp(-1, 1), ternary(k)]
+        ops[8][:, 1], ops[9][1] = ops[8][:, 0], ops[9][0]
+    else:
+        ops = [torch.relu(rand(n, h // 2, w // 2, 2 * c)),
+               torch.relu(rand(n, h, w, c)), rand(2 * c, 4 * c) / (2 * c) ** 0.5,
+               rand(c) * 0.1, rand(3, 3, 2 * c, c) * (2 / (18 * c)) ** 0.5,
+               rand(c) * 0.1, rand(3, 3, c, c) * (2 / (9 * c)) ** 0.5,
+               rand(c) * 0.1, rand(c, k) / c ** 0.5, rand(k) * 0.1]
+    return [t.to(torch.bfloat16).contiguous() for t in ops]
+
+
+def check_k6(torch, dec1, name, ops, exact=False):
+    """K6 against its plain version: equal masks except near ties (bit for
+    bit when ``exact``, with the plain version on the CPU, whose direct f32
+    convs keep integer sums exact where cuDNN may pick a Winograd or FFT
+    algorithm).  Returns the max abs class difference outside near ties."""
+    got = dec1.dec1_fused_masks(*ops)
+    torch.cuda.synchronize()
+    want = dec1.dec1_fused_plain(*[t.cpu() if exact else t for t in ops]
+                                 ).to(got.device)
+    tie = dec1.near_tie(dec1.dec1_head_input_plain(*ops[:8]), ops[8], ops[9])
+    differ = got != want
+    outside = differ if exact else differ & ~tie
+    err = int((got.int() - want.int()).abs()[outside].max().item()
+              ) if outside.any() else 0
+    k = ops[8].shape[1]
+    log({"phase": "dec1_parity", "case": name, "shape": list(ops[1].shape),
+         "classes": k, "differing_pixels": int(differ.sum()),
+         "near_tie_pixels": int(tie.sum()), "bad_pixels": int(outside.sum()),
+         "class_counts": torch.bincount(want.flatten().long(),
+                                        minlength=k).tolist(),
+         "max_abs_err": err})
+    if err or got.shape != want.shape or got.dtype != torch.uint8:
+        raise AssertionError(f"K6 differs from its plain version on {name}: "
+                             f"{int(outside.sum())} pixels outside near ties")
+    return err
+
+
+def k6_bound(skip_shape, k):
+    """(bound ms, flop ms, byte ms) of the fused level at skip (N, H, W, C):
+    the up-GEMM, both convs and the head at the tensor-core peak; x, skip and
+    the weights read once, the u8 classes written once."""
+    n, h, w, c = skip_shape
+    m = n * h * w
+    flops = 2.0 * (m // 4 * 2 * c * 4 * c + m * 9 * 2 * c * c + m * 9 * c * c
+                   + m * c * k)
+    weights = 2 * c * 4 * c + 9 * 2 * c * c + 9 * c * c + c * k + 3 * c + k
+    nbytes = 2.0 * (m // 4 * 2 * c + m * c + weights) + m
+    f_ms = flops / PEAK_BF16_FLOPS * 1e3
+    b_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    return max(f_ms, b_ms), f_ms, b_ms
+
+
+def centre_head_bias(torch, checkpoint, registry, native, raw_io, preprocess,
+                     path, raw_paths, size, device):
+    """Rewrite the head bias of the checkpoint at ``path`` to minus the
+    median logit of each class on ``raw_paths``: seeded random weights then
+    paint every class, so the masks have contours and every artifact is
+    written."""
+    import numpy as np
+
+    params, cfg = checkpoint.load(path)
+    u8 = np.stack([native.preprocess_u8(np.asarray(raw_io.read_raw(
+        p, size, size)), cfg.image_size) for p in raw_paths])
+    model = registry.build(params, cfg, device)
+    with torch.inference_mode():
+        logits = model(preprocess.model_input_from_u8(
+            torch.from_numpy(u8).to(device))[..., None])
+    params["head"]["b"] = -logits.reshape(-1, cfg.num_classes).median(
+        0).values.cpu().numpy()
+    checkpoint.save(path, params, cfg)
+
+
+def flagship(torch, np, F, dev, card):
+    """Phases 8-10: the flagship's kernels and main path.  Returns the
+    records of K6, K4 and K5 for the kernels line."""
+    from unetseg_tpu_torch import checkpoint, engine, service
+    from unetseg_tpu_torch.benchmarks import exp_bw
+    from unetseg_tpu_torch.config import ModelConfig
+    from unetseg_tpu_torch.data import synth_slice
+    from unetseg_tpu_torch.io import native, raw as raw_io
+    from unetseg_tpu_torch.models import registry
+    from unetseg_tpu_torch.ops import (cc_kernel, conv, dec1, halo_copy,
+                                       preprocess)
+    from unetseg_tpu_torch.ops.decode import decode_mask
+
+    def reset_launches():
+        for mod in (conv, cc_kernel, dec1, halo_copy):
+            mod.reset_launches()
+
+    def read_launches():
+        return {**conv.LAUNCHES, **dec1.LAUNCHES,
+                "cc_label": sum(cc_kernel.LAUNCHES.values())}
+
+    # -- 8. flagship parity ------------------------------------------------
+    worst = check_parity(torch, conv, dev, FLAGSHIP_CONVS + [STEM2_CONV], 2)
+    log({"phase": "flagship_conv_parity", "max_abs_err": worst})
+    k6_err = 0
+    for name, (n, h, w, c, k, seed), exact in K6_CASES:
+        k6_err = max(k6_err, check_k6(torch, dec1, name, k6_inputs(
+            torch, n, h, w, c, k, dev, seed, exact), exact))
+    x_bw = torch.randn(exp_bw.SHAPE, device=dev).to(torch.bfloat16)
+    for offset, name in halo_copy.NAMES.items():
+        got = halo_copy.halo_copy(x_bw, exp_bw.H, exp_bw.W2, offset)
+        same = torch.equal(got, halo_copy.halo_copy_plain(
+            x_bw, exp_bw.H, exp_bw.W2, offset))
+        log({"phase": "copy_parity", "kernel": name, "shape": list(x_bw.shape),
+             "bit_equal": same})
+        if not same:
+            raise AssertionError(f"{name} differs from the slice")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        in_dir = os.path.join(tmp, "in")
+        os.makedirs(in_dir)
+        size = 768
+        paths = write_raws(raw_io, synth_slice, np, in_dir, N_FLAGSHIP, size)
+        ckpt = os.path.join(tmp, "models", "flagship.ckpt")
+        os.makedirs(os.path.dirname(ckpt))
+        checkpoint.create(ckpt, ModelConfig(), seed=0)
+        centre_head_bias(torch, checkpoint, registry, native, raw_io,
+                         preprocess, ckpt, paths[:4], size, dev)
+
+        # -- 9. flagship main path -------------------------------------------
+        reset_launches()
+        if not engine.initialize_engine(ckpt, log_dir=os.path.join(tmp, "log")):
+            raise AssertionError("initialize_engine(flagship) returned False")
+        eng = engine.get_engine()
+        out = os.path.join(tmp, "out")
+        batch_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            ok, failed = engine.process_batch(
+                paths, size, size, [out] * N_FLAGSHIP,
+                batch_size=FLAGSHIP_BATCH, tier="full")
+            batch_s.append(time.perf_counter() - t0)
+            if (ok, failed) != (N_FLAGSHIP, 0):
+                raise AssertionError(f"process_batch: {ok} ok, {failed} failed")
+        single = os.path.join(tmp, "single")
+        t0 = time.perf_counter()
+        if not engine.process_single_image(paths[3], size, size, single):
+            raise AssertionError("process_single_image returned False")
+        single_s = time.perf_counter() - t0
+        for p in paths:
+            check_artifacts(out, os.path.basename(p)[:-len(".raw")])
+        check_artifacts(single, "slice_003")
+
+        # Two slices on the card and on the CPU (plain convs, plain K6).
+        u8_2 = torch.from_numpy(np.stack([native.preprocess_u8(np.asarray(
+            raw_io.read_raw(p, size, size)), 512) for p in paths[:2]]))
+        got = eng._masks(u8_2.to(dev)).cpu()
+        launches = read_launches()
+        forwards = eng.forwards
+        params, cfg = checkpoint.load(ckpt)
+        cpu_model = registry.build(params, cfg, device="cpu")
+        x2 = preprocess.model_input_from_u8(u8_2)[..., None]
+        with torch.inference_mode():
+            want = cpu_model.masks(x2)
+            trunk_cpu = cpu_model._trunk(x2)
+            trunk_dev = [t.cpu() for t in eng.model._trunk(x2.to(dev))]
+            head = (cpu_model.head_weight, cpu_model.head_bias)
+            last = cpu_model.decoder[-1]
+            weights = (last.up.weight, last.up.bias, last.conv1.weight,
+                       last.conv1.bias, last.conv2.weight, last.conv2.bias)
+            # K6 alone on real data: the card's masks against the plain
+            # version run on the card's own trunk output.
+            want_k6 = dec1.dec1_fused_plain(*trunk_dev, *weights, *head)
+            tie_k6 = dec1.near_tie(dec1.dec1_head_input_plain(
+                *trunk_dev, *weights), *head)
+            c2_cpu = dec1.dec1_head_input_plain(*trunk_cpu, *weights)
+        differ = got != want
+        k6_bad = int(((got != want_k6) & ~tie_k6).sum())
+        # Where the whole path differs, the CPU's top-2 margin in bf16 ulps
+        # of the larger absolute head sum (dec1.near_tie's measure).
+        ratio = 0.0
+        for r in (1, 2, 4, 8, 16, 32, 64):
+            if not (differ & ~dec1.near_tie(c2_cpu, *head, ulps=r)).any():
+                ratio = r
+                break
+        agree = 1 - differ.float().mean().item()
+        trunk_dev_rel = max(((a.float() - b.float()).abs().max() /
+                             b.float().abs().max()).item()
+                            for a, b in zip(trunk_dev, trunk_cpu))
+        log({"phase": "flagship_main_path", "config": "ModelConfig()",
+             "process_batch_64_s": batch_s, "process_single_image_s": single_s,
+             "forwards": forwards, "launches": launches,
+             "artifacts": len(os.listdir(out)),
+             "cpu_mask_agreement": agree,
+             "differing_pixels_within_ulps": ratio or None,
+             "k6_on_device_trunk_bad_pixels": k6_bad,
+             "k6_on_device_trunk_differing": int((got != want_k6).sum()),
+             "trunk_max_rel_dev": trunk_dev_rel,
+             "class_share": (torch.bincount(got.flatten().long(), minlength=3)
+                             / got.numel()).tolist(), **card})
+        want_l = {"conv3x3_bias_act": 13, "conv3x3_bias_act_small_c": 3,
+                  "dec1_fused": 1, "cc_label": 0}
+        if any(launches[k] != v * forwards for k, v in want_l.items()):
+            raise AssertionError(f"{launches} over {forwards} forwards: want "
+                                 f"{want_l} per forward")
+        if len(os.listdir(out)) != 5 * N_FLAGSHIP:
+            raise AssertionError("flagship: not five artifacts per slice")
+        if k6_bad:
+            raise AssertionError(f"K6 on the card's trunk output differs from "
+                                 f"its plain version at {k6_bad} pixels "
+                                 f"outside near ties")
+        # Seeded random weights with a centred head leave many pixels near a
+        # tie, and the 16 convs before K6 each sum in another order on the
+        # card than on the CPU: the two may part only at such pixels.
+        if agree < CPU_AGREEMENT or not ratio or ratio > CPU_TIE_ULPS:
+            raise AssertionError(f"flagship device vs CPU masks agree on "
+                                 f"{agree} (bar {CPU_AGREEMENT}); differing "
+                                 f"pixels within {ratio or '>64'} ulps (bar "
+                                 f"{CPU_TIE_ULPS})")
+        main_launches = launches
+
+        svc = service.SegmentationService(port=0)
+        addr = svc.start()
+        try:
+            for req in ({"cmd": "init", "cache": ckpt},
+                        {"cmd": "process", "path": paths[-1], "width": size,
+                         "height": size,
+                         "output_dir": os.path.join(tmp, "svc_one")},
+                        {"cmd": "shutdown"}):
+                resp = service.request(addr, req, timeout=300)
+                log({"phase": "flagship_service", "cmd": req["cmd"],
+                     "resp": resp})
+                if not resp.get("ok"):
+                    raise AssertionError(f"service {req['cmd']}: {resp}")
+        finally:
+            svc.stop()
+        check_artifacts(os.path.join(tmp, "svc_one"),
+                        os.path.basename(paths[-1])[:-len(".raw")])
+
+        # -- 10. flagship numbers ----------------------------------------------
+        eng = engine.InferenceEngine(params, cfg)
+        u8_32 = torch.from_numpy(np.stack([native.preprocess_u8(np.asarray(
+            raw_io.read_raw(p, size, size)), 512)
+            for p in paths[:FLAGSHIP_BATCH]])).to(dev)
+    pipe_ms = time_ms(torch, lambda: eng._pipeline(u8_32), 10)
+    log({"phase": "flagship_throughput", "batch": FLAGSHIP_BATCH,
+         "ms_per_batch": pipe_ms,
+         "slices_per_s": FLAGSHIP_BATCH / pipe_ms * 1e3, **card})
+    log({"phase": "flagship_profile",
+         **profile_pipeline(torch, lambda: eng._pipeline(u8_32)), **card})
+
+    for i, shape in enumerate(FLAGSHIP_CONVS):
+        x, w, b = conv_inputs(torch, shape, FLAGSHIP_BATCH, dev, seed=400 + i)
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        k_ms = time_ms(torch, lambda: conv.conv3x3_bias_act(x, w, b), 5)
+        lib_ms = time_ms(torch, lambda: F.conv2d(xc, wc, b, padding=1), 5)
+        bound, f_ms, b_ms = conv_bound(shape, FLAGSHIP_BATCH)
+        log({"phase": "flagship_conv_time", "shape": [FLAGSHIP_BATCH, *shape],
+             "variant": variant(shape[2]), "ms": k_ms, "library_ms": lib_ms,
+             "bound_ms": bound, "flop_ms": f_ms, "byte_ms": b_ms, **card})
+        del x, w, b, xc, wc
+
+    # K6 on the real last-level inputs of a batch.
+    model = eng.model
+    last = model.decoder[-1]
+    with torch.inference_mode():
+        xin, skip = model._trunk(preprocess.model_input_from_u8(u8_32)[..., None])
+    ops = [xin, skip, last.up.weight, last.up.bias, last.conv1.weight,
+           last.conv1.bias, last.conv2.weight, last.conv2.bias,
+           model.head_weight, model.head_bias]
+    k6_err = max(k6_err, check_k6(torch, dec1, "flagship_b32", ops))
+    hw, hb = model.head_weight, model.head_bias
+    xc_w1 = last.conv1.weight.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    xc_w2 = last.conv2.weight.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+
+    def unfused():  # the port's own ops: UpConv, cat, K1, K2, head, argmax
+        return decode_mask(last(xin, skip) @ hw + hb, 3)
+
+    def library():  # cuBLAS up-conv and head, cuDNN convs
+        y = torch.cat([skip, last.up(xin)], -1).permute(0, 3, 1, 2)
+        y = torch.relu(F.conv2d(y, xc_w1, last.conv1.bias, padding=1))
+        y = torch.relu(F.conv2d(y, xc_w2, last.conv2.bias, padding=1))
+        return decode_mask(y.permute(0, 2, 3, 1) @ hw + hb, 3)
+
+    with torch.inference_mode():
+        lib_agree = (library() == dec1.dec1_fused_masks(*ops)).float().mean()
+        k6_ms = time_ms(torch, lambda: dec1.dec1_fused_masks(*ops), 10)
+        plain_ms = time_ms(torch, lambda: dec1.dec1_fused_plain(*ops), 3,
+                           warmup=1)
+        unfused_ms = time_ms(torch, unfused, 10)
+        library_ms = time_ms(torch, library, 10)
+    bound, f_ms, b_ms = k6_bound(skip.shape, 3)
+    log({"phase": "dec1_time", "shape": list(skip.shape), "ms": k6_ms,
+         "bound_ms": bound, "flop_ms": f_ms, "byte_ms": b_ms,
+         "plain_ms": plain_ms, "port_unfused_sequence_ms": unfused_ms,
+         "library_sequence_ms": library_ms,
+         "library_sequence_mask_agreement": lib_agree.item(),
+         "tflops": f_ms * PEAK_BF16_FLOPS / 1e12 / k6_ms, **card})
+    k6_record = {
+        "name": "dec1_fused", "route": "cuda", "source": DEC1_SOURCE,
+        "replaces": REPLACES["dec1_fused"],
+        "launches": main_launches["dec1_fused"], "max_abs_err": k6_err,
+        "ms": k6_ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "operations" if f_ms >= b_ms else "bytes",
+        "library_ms": None}
+    del xin, skip, ops, u8_32, eng, model
+    torch.cuda.empty_cache()
+
+    records = [k6_record]
+    copy_bound = exp_bw.bound_ms()
+    copy_times = {}
+    for offset, name in halo_copy.NAMES.items():
+        k_ms = time_ms(torch, lambda: halo_copy.halo_copy(
+            x_bw, exp_bw.H, exp_bw.W2, offset), 20)
+        # The plain version, the slice made contiguous, is also the one
+        # PyTorch call that computes the copy: one time serves both.
+        lib_ms = time_ms(torch, lambda: halo_copy.halo_copy_plain(
+            x_bw, exp_bw.H, exp_bw.W2, offset), 20)
+        copy_times[name] = (k_ms, lib_ms)
+        log({"phase": "copy_time", "kernel": name, "ms": k_ms,
+             "gb_per_s": exp_bw.moved_bytes() / k_ms / 1e6,
+             "plain_ms": lib_ms, "library_ms": lib_ms,
+             "bound_ms": copy_bound, **card})
+    reset_launches()
+    if exp_bw.main() != 0:
+        raise AssertionError("exp_bw.main() failed")
+    probe_launches = dict(halo_copy.LAUNCHES)
+    log({"phase": "exp_bw", "launches": probe_launches})
+    for offset, name in halo_copy.NAMES.items():
+        if not probe_launches[name]:
+            raise AssertionError(f"exp_bw.main() never launched {name}")
+        k_ms, lib_ms = copy_times[name]
+        records.append({
+            "name": name, "route": "cuda", "source": COPY_SOURCE,
+            "replaces": REPLACES[name], "launches": probe_launches[name],
+            "max_abs_err": 0, "ms": k_ms, "plain_ms": lib_ms,
+            "bound_ms": copy_bound, "bound_by": "bytes", "library_ms": lib_ms})
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -298,7 +715,8 @@ def main() -> int:
     from unetseg_tpu_torch.io import native, raw as raw_io
     from unetseg_tpu_torch.metrics import foreground_iou
     from unetseg_tpu_torch.models import registry
-    from unetseg_tpu_torch.ops import cc, cc_kernel, conv, morphology, postprocess
+    from unetseg_tpu_torch.ops import (cc, cc_kernel, conv, dec1, halo_copy,
+                                       morphology, postprocess)
     from unetseg_tpu_torch.ops.preprocess import preprocess_oracle_u8
 
     def reset_launches():
@@ -322,11 +740,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False  # plain version: full f32
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # -- 2. build (both kernels and the host library together) -------------
+    # -- 2. build (every kernel and the host library, all at once) ----------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        for fut in [pool.submit(conv.load), pool.submit(cc_kernel.load),
-                    pool.submit(native.load)]:
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        for fut in [pool.submit(lib.load) for lib in (
+                conv, cc_kernel, dec1, halo_copy, native)]:
             fut.result()
     log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3)})
 
@@ -604,6 +1022,9 @@ def main() -> int:
         "max_abs_err": cc_err, "ms": cc_sum["ms"],
         "plain_ms": cc_sum["plain_ms"], "bound_ms": cc_sum["bound_ms"],
         "bound_by": "bytes", "library_ms": None})
+    del u8_real, masks, masks_np, inv, opened, speckle, eng, eng_dev
+    torch.cuda.empty_cache()
+    kernels += flagship(torch, np, F, dev, card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

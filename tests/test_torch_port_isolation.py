@@ -16,8 +16,11 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "unetseg_tpu"))
-print(len(names), bad)
+print(len(names), bad, *names)
 """
+#: Modules of the later slices, named so the walk cannot miss them.
+NEW_MODULES = ("unetseg_tpu_torch.ops.dec1", "unetseg_tpu_torch.ops.halo_copy",
+               "unetseg_tpu_torch.benchmarks.exp_bw")
 
 
 def test_port_imports_no_jax():
@@ -25,8 +28,9 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    n, bad = proc.stdout.strip().split(" ", 1)
-    assert int(n) >= 25 and bad == "[]", proc.stdout
+    n, bad, *names = proc.stdout.strip().split(" ")
+    assert int(n) >= 29 and bad == "[]", proc.stdout
+    assert set(NEW_MODULES) <= set(names), proc.stdout
 
 
 def test_port_sources_name_no_jax():
@@ -39,7 +43,10 @@ def test_port_sources_name_no_jax():
     for dirpath, _, files in os.walk(root):
         sources += [os.path.join(dirpath, f) for f in files
                     if f.endswith(".py")]
-    assert len(sources) >= 26
+    assert len(sources) >= 30
+    assert {os.path.join(root, "ops", "dec1.py"),
+            os.path.join(root, "ops", "halo_copy.py"),
+            os.path.join(root, "benchmarks", "exp_bw.py")} <= set(sources)
     for path in sources:
         src = open(path).read()
         for word in ("import jax", "from jax", "import flax",

@@ -1,10 +1,13 @@
-"""Read the JAX package's checkpoints and turn them into the port's weights.
+"""Read and write the JAX package's checkpoints; turn them into the port's
+weights.
 
 A checkpoint is ``UTPUCKPT1\\n`` followed by one msgpack map
 ``{"config": {...}, "params": pytree}`` as flax's ``msgpack_serialize``
 writes it: arrays are msgpack ext type 1 holding a packed
 ``(shape, dtype_name, bytes)`` tuple.  Neither msgpack nor flax is needed:
-:func:`unpackb` below reads the subset of msgpack these files use.
+:func:`unpackb` reads and :func:`packb` writes the subset of msgpack these
+files use, so a file :func:`save` writes loads in the JAX package's
+``checkpoint.load`` and the other way round.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from unetseg_tpu_torch.config import ModelConfig
+from unetseg_tpu_torch.models import unet
 
 MAGIC = b"UTPUCKPT1\n"
 _EXT_NDARRAY = 1  # flax.serialization._MsgpackExtType.ndarray
@@ -117,6 +121,99 @@ def unpackb(data: bytes) -> Any:
     if r.pos != len(data):
         raise ValueError("trailing bytes after msgpack value")
     return out
+
+
+def _pack(v: Any, out: list) -> None:
+    """Append the msgpack encoding of ``v`` to ``out`` (bytes pieces), in
+    the smallest form, as msgpack-python writes it under flax."""
+    def head(n: int, fix: int, fix_max: int, codes) -> None:
+        if n <= fix_max:
+            out.append(bytes([fix | n]))
+            return
+        for code, fmt in codes:
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                out.append(bytes([code]) + struct.pack(fmt, n))
+                return
+        raise ValueError(f"msgpack: length {n} too large")
+
+    if v is None or isinstance(v, bool):
+        out.append({None: b"\xc0", False: b"\xc2", True: b"\xc3"}[v])
+    elif isinstance(v, int):
+        if 0 <= v <= 0x7F or -32 <= v < 0:
+            out.append(struct.pack(">b" if v < 0 else ">B", v))
+        elif v >= 0:
+            for code, fmt in ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"),
+                              (0xCF, ">Q")):
+                if v < 1 << (8 * struct.calcsize(fmt)):
+                    out.append(bytes([code]) + struct.pack(fmt, v))
+                    return
+            raise ValueError(f"msgpack: int {v} too large")
+        else:
+            for code, fmt in ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"),
+                              (0xD3, ">q")):
+                if v >= -(1 << (8 * struct.calcsize(fmt) - 1)):
+                    out.append(bytes([code]) + struct.pack(fmt, v))
+                    return
+            raise ValueError(f"msgpack: int {v} too small")
+    elif isinstance(v, float):
+        out.append(b"\xcb" + struct.pack(">d", v))
+    elif isinstance(v, str):
+        data = v.encode("utf-8")
+        head(len(data), 0xA0, 31, ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I")))
+        out.append(data)
+    elif isinstance(v, bytes):
+        head(len(v), 0, -1, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I")))
+        out.append(v)
+    elif isinstance(v, (list, tuple)):
+        head(len(v), 0x90, 15, ((0xDC, ">H"), (0xDD, ">I")))
+        for item in v:
+            _pack(item, out)
+    elif isinstance(v, dict):  # keys sorted, as flax's tree_map leaves them
+        head(len(v), 0x80, 15, ((0xDE, ">H"), (0xDF, ">I")))
+        for k in sorted(v):
+            _pack(k, out)
+            _pack(v[k], out)
+    elif isinstance(v, np.ndarray):
+        if v.dtype.hasobject or v.dtype.names:
+            raise ValueError(f"msgpack: unsupported array dtype {v.dtype}")
+        data = packb([list(v.shape), v.dtype.name, v.tobytes("C")])
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(data) in fixext:
+            out.append(bytes([fixext[len(data)]]))
+        else:
+            head(len(data), 0, -1, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
+        out.append(struct.pack(">b", _EXT_NDARRAY))
+        out.append(data)
+    else:
+        raise TypeError(f"msgpack: cannot encode {type(v).__name__}")
+
+
+def packb(value: Any) -> bytes:
+    """Encode one value: dicts, lists and tuples, str, bytes, ints,
+    floats, bools, None, and numpy arrays as flax's ext type 1."""
+    out: list = []
+    _pack(value, out)
+    return b"".join(out)
+
+
+def save(path: str, params: dict, cfg: ModelConfig) -> None:
+    """Write ``params`` (a pytree of numpy arrays, as :func:`load` returns
+    and ``models.unet.init`` builds) and ``cfg`` to ``path`` in the JAX
+    package's format (``unetseg_tpu/checkpoint.py::save``), byte for byte
+    what flax writes.  The file appears only when complete."""
+    payload = packb({"config": dataclasses.asdict(cfg), "params": params})
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(MAGIC)
+        f.write(payload)
+    os.replace(tmp, path)
+
+
+def create(path: str, cfg: ModelConfig = ModelConfig(), seed: int = 0) -> None:
+    """Write a fresh He-normal checkpoint for ``cfg`` drawn from a
+    ``torch.Generator`` seeded with ``seed`` (``unetseg_tpu/checkpoint.py::
+    create``; the weights differ from JAX's for the same seed)."""
+    save(path, unet.init(cfg, torch.Generator().manual_seed(seed)), cfg)
 
 
 def load(path: str) -> Tuple[dict, ModelConfig]:

@@ -31,7 +31,7 @@ from unetseg_tpu_torch import checkpoint
 from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.io import native, raw as raw_io
 from unetseg_tpu_torch.models import registry as model_registry
-from unetseg_tpu_torch.ops import decode, postprocess, preprocess
+from unetseg_tpu_torch.ops import postprocess, preprocess
 from unetseg_tpu_torch.utils.logger import GLOBAL_LOG, derive_log_dir
 
 #: Artifact tiers of batched processing: which of the five artifacts a
@@ -69,11 +69,12 @@ class InferenceEngine:
 
     def _masks(self, u8_batch: torch.Tensor) -> torch.Tensor:
         """(N, S, S) uint8 on the engine's device -> (N, S, S) uint8 class
-        masks: u8/255 -> UNet -> first-max argmax."""
+        masks: u8/255 -> UNet -> first-max argmax (``UNet.masks``: fused
+        into the last decoder level for a stem-1 model)."""
         self.forwards += 1
         with torch.inference_mode():
             x = preprocess.model_input_from_u8(u8_batch)[..., None]
-            return decode.decode_mask(self.model(x), self.cfg.num_classes)
+            return self.model.masks(x)
 
     def _pipeline(self, u8_batch: torch.Tensor) -> torch.Tensor:
         """:meth:`_masks`, then the mask cleanup when it runs on the

@@ -4,7 +4,9 @@ NHWC end to end, as in the JAX package, so space-to-depth and depth-to-space
 are the same reshapes and the conv kernel reads channels-last.  The ten (for
 depth 2) 3x3 conv+ReLU stages go through ``ops.conv.conv3x3_bias_act``; the
 2x2 stride-2 up-conv and the 1x1 head stay matmuls, as JAX leaves them to
-``lax`` outside any Pallas kernel.
+``lax`` outside any Pallas kernel.  :meth:`UNet.masks`, the class map the
+engine serves, runs a stem-1 model's last decoder level, head and argmax in
+one kernel instead (``ops.dec1.dec1_fused_masks``, K6).
 
 The weights are cast once to the compute dtype when the module is moved
 (``module.to(dtype=...)``); JAX casts them per call, and both round each
@@ -14,13 +16,17 @@ dtype, and logits become float32 only at the end (unet.py:53-62, 224-227).
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
 from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.ops.conv import conv3x3_bias_act
+from unetseg_tpu_torch.ops.dec1 import dec1_fused_masks, up_conv
+from unetseg_tpu_torch.ops.decode import decode_mask
 
 
 def stage_channels(cfg: ModelConfig) -> Sequence[int]:
@@ -82,11 +88,7 @@ class UpConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, h, w, _ = x.shape
-        o = self.bias.shape[0]
-        y = (x @ self.weight).reshape(n, h, w, 2, 2, o)
-        y = y.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, o)
-        return y + self.bias
+        return up_conv(x, self.weight, self.bias)
 
 
 class DecoderStage(nn.Module):
@@ -125,7 +127,9 @@ class UNet(nn.Module):
                                         requires_grad=False)
         self.head_bias = nn.Parameter(torch.zeros(n_out), requires_grad=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _trunk(self, x: torch.Tensor):
+        """Everything before the last decoder level: (its input, its
+        skip)."""
         x = x.to(self.head_weight.dtype)
         if self.cfg.stem > 1:
             x = space_to_depth(x, self.cfg.stem)
@@ -135,9 +139,70 @@ class UNet(nn.Module):
             skips.append(x)
             x = max_pool_2x2(x)
         x = self.bottleneck(x)
-        for stage, skip in zip(self.decoder, reversed(skips)):
+        for stage, skip in zip(self.decoder[:-1], reversed(skips[1:])):
             x = stage(x, skip)
+        return x, skips[0]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.decoder[-1](*self._trunk(x))
         logits = x @ self.head_weight + self.head_bias
         if self.cfg.stem > 1:
             logits = depth_to_space(logits, self.cfg.stem)
         return logits.float()
+
+    def masks(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC input in [0, 1] -> uint8 (N, H, W) first-max class map.
+
+        A stem-1 model runs its last decoder level, head and argmax in the
+        fused K6 kernel (``ops.dec1``); a stem-s model (s > 1), whose head
+        is followed by depth-to-space, argmaxes its logits.
+        """
+        if self.cfg.stem > 1:
+            return decode_mask(self(x), self.cfg.num_classes)
+        x, skip = self._trunk(x)
+        last = self.decoder[-1]
+        return dec1_fused_masks(
+            x, skip, last.up.weight, last.up.bias, last.conv1.weight,
+            last.conv1.bias, last.conv2.weight, last.conv2.bias,
+            self.head_weight, self.head_bias)
+
+
+def _he_normal(gen: torch.Generator, shape, fan_in: int) -> np.ndarray:
+    std = math.sqrt(2.0 / fan_in)
+    return (torch.randn(shape, generator=gen) * std).numpy()
+
+
+def _conv_init(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int
+               ) -> dict:
+    return {"w": _he_normal(gen, (kh, kw, cin, cout), kh * kw * cin),
+            "b": np.zeros((cout,), np.float32)}
+
+
+def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    """A fresh UNet parameter tree, the counterpart of
+    ``unetseg_tpu/models/unet.py::init``: the JAX tree layout (HWIO convs,
+    (2, 2, Ci, O) up-convs, (1, 1, C, K) head), He-normal weights and zero
+    biases, as float32 numpy arrays.  The numbers come from ``generator``,
+    so they differ from ``jax.random``'s for the same seed."""
+    chans = stage_channels(cfg)
+    bottleneck = cfg.base_channels * (2 ** cfg.depth)
+    params: dict = {"encoder": [], "decoder": []}
+    cin = cfg.in_channels * cfg.stem * cfg.stem
+    for cout in chans:
+        params["encoder"].append({
+            "conv1": _conv_init(generator, 3, 3, cin, cout),
+            "conv2": _conv_init(generator, 3, 3, cout, cout)})
+        cin = cout
+    params["bottleneck"] = {
+        "conv1": _conv_init(generator, 3, 3, chans[-1], bottleneck),
+        "conv2": _conv_init(generator, 3, 3, bottleneck, bottleneck)}
+    cin = bottleneck
+    for cout in reversed(chans):
+        params["decoder"].append({
+            "up": _conv_init(generator, 2, 2, cin, cout),
+            "conv1": _conv_init(generator, 3, 3, cout * 2, cout),
+            "conv2": _conv_init(generator, 3, 3, cout, cout)})
+        cin = cout
+    params["head"] = _conv_init(generator, 1, 1, chans[0],
+                                cfg.num_classes * cfg.stem * cfg.stem)
+    return params

@@ -11,7 +11,10 @@ and ``chip_smoke.py`` hold the kernel against.
 ``LAUNCHES`` counts kernel launches by variant, so a run can show that its
 forward passes went through the kernel: the C >= 128 variant replaces the
 Pallas ``conv3x3_bias_act`` and the C < 128 variant replaces
-``_conv3x3_small_c``.
+``_conv3x3_small_c``.  The kernel reads 16-channel chunks, so an input whose
+C is not a multiple of 16 (the flagship's C = 1 first conv, a stem-2
+model's C = 4) is zero-padded to one first (:func:`pad_input_channels`),
+which is exact: the zero channels meet zero weight rows.
 """
 
 from __future__ import annotations
@@ -71,6 +74,19 @@ def conv3x3_bias_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.permute(0, 2, 3, 1).contiguous().to(x.dtype)
 
 
+def pad_input_channels(x: torch.Tensor, w: torch.Tensor, multiple: int = 16
+                       ) -> tuple:
+    """(x, w) with x's channels and w's input rows zero-padded up to the
+    next multiple of ``multiple``; unchanged when C already is one.  The
+    conv of the padded pair equals the unpadded conv: each added channel
+    meets a zero weight row."""
+    c = x.shape[3]
+    extra = -c % multiple
+    if not extra:
+        return x, w
+    return F.pad(x, (0, extra)), F.pad(w, (0, 0, 0, extra))
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, x.shape[3]) \
             or tuple(b.shape) != (w.shape[3],):
@@ -85,8 +101,9 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """3x3 stride-1 SAME conv + bias (+ ReLU): (B,H,W,C) x (3,3,C,D) + (D,)
     -> (B,H,W,D) in ``x.dtype``, summed in float32.
 
-    CUDA tensors must be bf16, contiguous, 16-byte aligned, with C and D
-    multiples of 16; anything else raises.
+    CUDA tensors must be bf16, contiguous, 16-byte aligned, with D a
+    multiple of 16; anything else raises.  C may be any size: it is
+    zero-padded to a multiple of 16 first (:func:`pad_input_channels`).
     """
     _check(x, w, b)
     if x.device.type == "cpu":
@@ -96,11 +113,12 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if not (x.dtype == w.dtype == b.dtype == torch.bfloat16):
         raise TypeError(f"conv3x3 kernel takes bf16 only, got {x.dtype}, "
                         f"{w.dtype}, {b.dtype}")
+    x, w = pad_input_channels(x, w)
     B, H, W, C = x.shape
     D = w.shape[3]
-    if C % 16 or D % 16:
-        raise ValueError(f"conv3x3 kernel needs C, D multiples of 16, got "
-                         f"C={C}, D={D}")
+    if D % 16:
+        raise ValueError(f"conv3x3 kernel needs D a multiple of 16, got "
+                         f"D={D}")
     if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
         raise ValueError("conv3x3 kernel needs contiguous x, w, b")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
