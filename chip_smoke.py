@@ -7,9 +7,13 @@ Phases, each of which fails the run (non-zero exit) on error:
 
 1. Device: the card's name and power limit (nvidia-smi); no CUDA -> exit 1.
 2. Build: all four kernel sources (conv, CCL, fused last decoder level,
-   halo copy; nvcc, sm_90a) and the host C++ library, all at once.
+   halo copy; nvcc, sm_90a) and the host C++ library, all at once; then
+   the conv kernel's registers, spills and shared memory per
+   instantiation, as ``nvcc -Xptxas -v`` reported them, one line each.
 3. Kernel parity: the conv kernel against its plain PyTorch version on
-   slim4's ten conv shapes at batch 8, plus a ragged shape; the CCL kernel
+   slim4's ten conv shapes at batch 8, plus two ragged shapes, and on the
+   tiling's edge cases at batch 3 (several column tiles with a remainder,
+   fewer rows than a tile, D = 112, C = 48, 80, 96); the CCL kernel
    (``cc_label`` and ``propagate_min``) bit for bit against its plain
    version on the CCL test shapes at full size and a batch of 128 512²
    50% speckles.
@@ -60,7 +64,8 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``initialize_engine``, ``process_batch`` on 64 synthetic 768² RAWs at
    batch 32, tier full, and ``process_single_image``: all five artifacts;
    per forward 13 K1, 3 K2, 1 K6 and no K3 launches; masks on two slices
-   agree with the CPU path on >= 99.99% of pixels; the TCP service's
+   agree with the CPU path on >= 99.5% of pixels, every differing pixel
+   within 4 ulps of ``dec1.near_tie``; the TCP service's
    ``init`` on that checkpoint and one single-file ``process``.
 10. Flagship numbers: the device pipeline at batch 32 (CUDA events) and its
    device time by kernel and idle share (torch.profiler); per conv shape at
@@ -95,6 +100,13 @@ SLIM4_CONVS = [(128, 128, 16, 64), (128, 128, 64, 64), (64, 64, 64, 128),
                (128, 128, 64, 64)]
 # Extra parity shapes: ragged H/W and a D that is not a multiple of 64.
 EXTRA_CONVS = [(37, 53, 16, 48), (19, 23, 128, 80)]
+# Edges of the kernel's tiling (ops/conv.tile_plan), at batch 3: W = 300
+# (three 128-column tiles, the last ragged) with D = 112; H = 7 over 4-row
+# tiles at W = 32; H = 3, fewer rows than a tile; C = 48, 80 (16-channel
+# boxes) and 96 (32-channel boxes).
+EDGE_CONVS = [(19, 300, 128, 112), (7, 32, 48, 112), (3, 20, 80, 64),
+              (9, 70, 96, 48)]
+EDGE_BATCH = 3
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -747,9 +759,14 @@ def main() -> int:
                 conv, cc_kernel, dec1, halo_copy, native)]:
             fut.result()
     log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3)})
+    for r in conv.resources():
+        log({"phase": "conv_resources", **r})
 
     # -- 3. kernel parity on the card --------------------------------------
     max_err = check_parity(torch, conv, dev, SLIM4_CONVS + EXTRA_CONVS, 8)
+    for v, err in check_parity(torch, conv, dev, EDGE_CONVS,
+                               EDGE_BATCH).items():
+        max_err[v] = max(max_err.get(v, 0.0), err)
     cc_err = 0
     for i, (name, fg) in enumerate(cc_cases(np)):
         cc_err = max(cc_err, check_cc(torch, cc, cc_kernel, name,

@@ -42,7 +42,8 @@ def _pallas(x, w, b, relu, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("relu", [True, False])
 @pytest.mark.parametrize("c,d,h,w", [(16, 64, 8, 8), (64, 32, 8, 12),
-                                     (128, 64, 8, 8), (256, 128, 4, 8)])
+                                     (128, 64, 8, 8), (256, 128, 4, 8),
+                                     (192, 96, 4, 8), (48, 80, 8, 12)])
 def test_plain_matches_pallas(c, d, h, w, relu, dtype):
     x, wt, bias = _inputs(c + d + h, 2, h, w, c, d)
     want = _pallas(x, wt, bias, relu, dtype)

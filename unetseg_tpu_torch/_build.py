@@ -5,7 +5,9 @@ kernels) is compiled here: the output name carries a hash of the command and
 of every source, so an edited source is never served from a stale library.
 Concurrent builds (pytest-xdist workers, threads) serialise on a file
 lock, and the library appears under its final name only through
-``os.replace``, so no process ever loads a half-written file.
+``os.replace``, so no process ever loads a half-written file.  What the
+compiler printed on a successful build is kept beside the library
+(:func:`read_log`), for flags such as ``-Xptxas -v``.
 """
 
 from __future__ import annotations
@@ -57,7 +59,19 @@ def build_shared(name: str, compiler: Sequence[str], sources: Sequence[str],
                 raise RuntimeError(
                     f"building {name} failed ({' '.join(compiler)}):\n"
                     f"{proc.stdout}\n{proc.stderr}")
+            with open(f"{out}.log", "w") as f:
+                f.write(proc.stdout + proc.stderr)
             os.replace(tmp, out)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return out
+
+
+def read_log(library: str) -> str:
+    """What the compiler printed when ``library`` (a path returned by
+    :func:`build_shared`) was built; empty if nothing was kept."""
+    try:
+        with open(f"{library}.log") as f:
+            return f.read()
+    except FileNotFoundError:
+        return ""

@@ -11,23 +11,31 @@ and ``chip_smoke.py`` hold the kernel against.
 ``LAUNCHES`` counts kernel launches by variant, so a run can show that its
 forward passes went through the kernel: the C >= 128 variant replaces the
 Pallas ``conv3x3_bias_act`` and the C < 128 variant replaces
-``_conv3x3_small_c``.  The kernel reads 16-channel chunks, so an input whose
-C is not a multiple of 16 (the flagship's C = 1 first conv, a stem-2
-model's C = 4) is zero-padded to one first (:func:`pad_input_channels`),
-which is exact: the zero channels meet zero weight rows.
+``_conv3x3_small_c``.  The kernel reads channel chunks of 16, 32 or 64, so
+an input whose C is not a multiple of 16 (the flagship's C = 1 first conv, a
+stem-2 model's C = 4) is zero-padded to one first
+(:func:`pad_input_channels`), which is exact: the zero channels meet zero
+weight rows.
+
+The kernel's tiling is decided here, in :func:`tile_plan`, and passed to it,
+so the CPU tests cover the plan: tiles of 128 output pixels (``rt`` rows x
+``wt`` columns of one image) by ``bn`` channels, and K slices of ``bkc``
+channels of one tap; with ``fold``, one input box of ``wt + 2`` columns
+serves the three dx taps of a row of taps.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import threading
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc
+from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc, read_log
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "conv3x3.cu")
@@ -36,8 +44,57 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 LAUNCHES: Dict[str, int] = {"conv3x3_bias_act": 0,
                             "conv3x3_bias_act_small_c": 0}
 
+#: Output pixels per tile: the M of two 64-row wgmma warpgroups.
+TILE_PIXELS = 128
+
 _lock = threading.Lock()
 _lib = None
+_lib_path = None
+
+
+class TilePlan(NamedTuple):
+    """How the kernel cuts one conv: see :func:`tile_plan`."""
+    wt: int       # tile columns: min(128, next power of two >= W)
+    rt: int       # tile rows: 128 // wt
+    bn: int       # output channels per tile: 64, 128 or 256
+    bkc: int      # channels per K slice (one TMA box): 64, 32 or 16
+    swizzle: int  # shared-memory swizzle of the A box, bytes: bkc * 2
+    fold: bool    # one (wt + 2)-column A box per (dy, chunk) for all 3 dx
+    tiles_w: int
+    tiles_h: int
+    tiles_n: int
+    grid: int     # blocks: B * tiles_h * tiles_w * tiles_n
+
+
+def tile_plan(B: int, H: int, W: int, C: int, D: int) -> TilePlan:
+    """The kernel's tiling of a (B,H,W,C) x (3,3,C,D) conv.
+
+    A tile is 128 pixels of one image, ``rt`` rows by ``wt`` columns, so a
+    ragged H or W leaves a partial tile that the kernel masks; ``bkc`` is the
+    largest of 64, 32, 16 that divides C, one 128-, 64- or 32-byte swizzle
+    row of the A box, so no K slice is ever partial; ``bn`` is 64 for
+    D <= 64, 256 for D >= 256 with 64-channel boxes (fewer bytes from L2
+    per product; one block per SM), else 128.  ``fold`` (wt >= 64, so each
+    64-pixel warpgroup half lies in one image row, and bn <= 128) loads one
+    box of wt + 2 columns per (dy, chunk) and reads the three dx taps as
+    views one pixel apart: a third of the input boxes.  C and D must be
+    multiples of 16."""
+    if C % 16 or D % 16 or min(B, H, W, C, D) < 1:
+        raise ValueError(f"conv3x3 tile plan: needs C and D multiples of 16, "
+                         f"got B={B} H={H} W={W} C={C} D={D}")
+    wt = min(TILE_PIXELS, 1 << (W - 1).bit_length())
+    rt = TILE_PIXELS // wt
+    bkc = next(k for k in (64, 32, 16) if C % k == 0)
+    bn = 64 if D <= 64 else 256 if D >= 256 and bkc == 64 else 128
+    fold = wt >= 64 and bn <= 128
+    tiles_w, tiles_h, tiles_n = -(-W // wt), -(-H // rt), -(-D // bn)
+    return TilePlan(wt, rt, bn, bkc, 2 * bkc, fold, tiles_w, tiles_h,
+                    tiles_n, B * tiles_h * tiles_w * tiles_n)
+
+
+# The entry point's own error codes (CUDA's are positive).
+_ERRORS = {-1: "tile plan refused", -2: "no cuTensorMapEncodeTiled in the "
+           "driver", -3: "tensor map refused"}
 
 
 def reset_launches() -> None:
@@ -47,16 +104,65 @@ def reset_launches() -> None:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use.  Raises if it cannot be."""
-    global _lib
+    global _lib, _lib_path
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build_shared(
-                "libconv3x3", [nvcc(), *NVCC_FLAGS], [SOURCE]))
+            path = build_shared("libconv3x3",
+                                [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"],
+                                [SOURCE])
+            lib = ctypes.CDLL(path)
             lib.utconv3x3_bf16.restype = ctypes.c_int
             lib.utconv3x3_bf16.argtypes = (
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-            _lib = lib
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+                + [ctypes.c_void_p])
+            lib.utconv3x3_smem_bytes.restype = ctypes.c_int
+            lib.utconv3x3_smem_bytes.argtypes = [ctypes.c_int] * 3
+            _lib, _lib_path = lib, path
         return _lib
+
+
+def resources() -> list:
+    """Per kernel instantiation, what ``nvcc -Xptxas -v`` reported when the
+    library was built (registers, spills, static shared memory) and its
+    dynamic shared memory: a list of dicts with keys ``bkc``, ``bn``,
+    ``fold``, ``registers``, ``spill_bytes``, ``smem_static``,
+    ``smem_dynamic``."""
+    lib = load()
+    out = []
+    for name, info in parse_ptxas(read_log(_lib_path)).items():
+        m = re.search(r"conv3x3_wgmma_kernelILi(\d+)ELi(\d+)ELb([01])E", name)
+        if m:
+            bkc, bn, fold = (int(g) for g in m.groups())
+            out.append({"bkc": bkc, "bn": bn, "fold": bool(fold), **info,
+                        "smem_dynamic": lib.utconv3x3_smem_bytes(bkc, bn,
+                                                                 fold)})
+    return sorted(out, key=lambda r: (r["fold"], r["bkc"], r["bn"]))
+
+
+def parse_ptxas(log: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_bytes", "smem_static"}}
+    from ``ptxas -v`` output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {"registers": None, "spill_bytes": 0,
+                                  "smem_static": 0})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem_static"] = int(m.group(1)) if m else 0
+    return out
 
 
 def conv3x3_bias_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -104,6 +210,7 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     CUDA tensors must be bf16, contiguous, 16-byte aligned, with D a
     multiple of 16; anything else raises.  C may be any size: it is
     zero-padded to a multiple of 16 first (:func:`pad_input_channels`).
+    B, H and W may be any size; the kernel runs :func:`tile_plan`'s tiling.
     """
     _check(x, w, b)
     if x.device.type == "cpu":
@@ -123,18 +230,21 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError("conv3x3 kernel needs contiguous x, w, b")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("conv3x3 kernel needs 16-byte aligned x and w")
-    if B * H * W >= 2 ** 31:  # the kernel's grid counts pixel tiles in int
-        raise ValueError("conv3x3 kernel: more than 2**31 output pixels")
+    plan = tile_plan(B, H, W, C, D)
+    if plan.grid >= 2 ** 31 or max(B, H, W) >= 2 ** 31:
+        raise ValueError(f"conv3x3 kernel: {plan.grid} tiles, more than the "
+                         f"grid holds")
     lib = load()
     out = torch.empty((B, H, W, D), dtype=x.dtype, device=x.device)
     small_c = C < 128
     with torch.cuda.device(x.device):  # the launch goes to x's card
         err = lib.utconv3x3_bf16(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            B, H, W, C, D, int(relu), int(small_c),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            B, H, W, C, D, int(relu), plan.wt, plan.rt, plan.bn, plan.bkc,
+            int(plan.fold), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"conv3x3 kernel launch failed: "
+                           f"{_ERRORS.get(err, f'CUDA error {err}')}")
     LAUNCHES["conv3x3_bias_act_small_c" if small_c
              else "conv3x3_bias_act"] += 1
     return out
