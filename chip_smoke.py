@@ -7,9 +7,11 @@ Phases, each of which fails the run (non-zero exit) on error:
 
 1. Device: the card's name and power limit (nvidia-smi); no CUDA -> exit 1.
 2. Build: all four kernel sources (conv, CCL, fused last decoder level,
-   halo copy; nvcc, sm_90a) and the host C++ library, all at once; then
-   the conv kernel's registers, spills and shared memory per
-   instantiation, as ``nvcc -Xptxas -v`` reported them, one line each.
+   halo copy; nvcc, sm_90a), K6's phase-stamped build and the host C++
+   library, all at once; then
+   the conv kernel's and K6's registers, spills and shared memory per
+   instantiation, as ``nvcc -Xptxas -v`` reported them, one line each
+   (``conv_resources``, ``dec1_resources``); a spill in K6 fails the run.
 3. Kernel parity: the conv kernel against its plain PyTorch version on
    slim4's ten conv shapes at batch 8, plus two ragged shapes, and on the
    tiling's edge cases at batch 3 (several column tiles with a remainder,
@@ -56,8 +58,10 @@ Phases, each of which fails the run (non-zero exit) on error:
    against ``dec1_fused_plain`` at B = 2 and 32, 512², C = 64, on random
    inputs (masks equal except near ties, ``dec1.near_tie``), on small-
    integer inputs whose every f32 sum is exact and whose logits tie (bit
-   for bit), and on odd sizes and other C; the halo copies (K4, K5) bit for
-   bit against the slice.
+   for bit), on odd sizes and other C, and at the edges of its tile plan
+   (ragged last tiles both ways, images smaller than one tile, B = 1 and
+   3, K = 1 and 8); the halo copies (K4, K5) bit for bit against the
+   slice.
 9. Flagship main path, counters set to 0 just before it:
    ``checkpoint.create(ModelConfig(), seed=0)`` with its head bias centred
    on the RAWs' logits (so every class and contour occurs), then
@@ -73,7 +77,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    real last-level inputs of a batch of 32 beside its bound, its plain
    version, the port's unfused sequence (``UpConv``, ``cat``, K1, K2, head,
    argmax) and the cuDNN/cuBLAS sequence (no single PyTorch call computes
-   it); K4 and K5 beside their bound and ``.contiguous()``; then
+   it), and where a tile's cycles go
+   (``unetseg_tpu_torch.benchmarks.dec1_phases``); K4 and K5 beside their
+   bound and ``.contiguous()``; then
    ``unetseg_tpu_torch.benchmarks.exp_bw.main()`` once, with the copy
    counters set to 0 just before it (the probe is K4's and K5's path).
 
@@ -149,7 +155,14 @@ K6_CASES = [("random", (2, 512, 512, 64, 3, 1), False),
             ("c16_k3", (2, 64, 64, 16, 3, 5), False),
             ("c32_k5", (2, 64, 96, 32, 5, 6), False),
             ("c48_k8", (1, 48, 48, 48, 8, 7), False),
-            ("c96_k2", (1, 34, 66, 96, 2, 8), False)]
+            ("c96_k2", (1, 34, 66, 96, 2, 8), False),
+            # Edges of K6's tile plan (ops/dec1.tile_plan: 12 x 28 at C = 64,
+            # 14 x 28 at C = 16, 6 x 28 at C = 80): ragged last tiles both
+            # ways at B = 3 and K = 1; images smaller than one tile; K = 8.
+            ("ragged_b3_k1", (3, 62, 86, 64, 1, 9), False),
+            ("small_8x6", (1, 8, 6, 64, 3, 10), False),
+            ("small_c80_b3_k8", (3, 10, 20, 80, 8, 11), False),
+            ("c16_b1_k1", (1, 30, 58, 16, 1, 12), False)]
 
 
 def log(obj) -> None:
@@ -453,7 +466,7 @@ def flagship(torch, np, F, dev, card):
     """Phases 8-10: the flagship's kernels and main path.  Returns the
     records of K6, K4 and K5 for the kernels line."""
     from unetseg_tpu_torch import checkpoint, engine, service
-    from unetseg_tpu_torch.benchmarks import exp_bw
+    from unetseg_tpu_torch.benchmarks import dec1_phases, exp_bw
     from unetseg_tpu_torch.config import ModelConfig
     from unetseg_tpu_torch.data import synth_slice
     from unetseg_tpu_torch.io import native, raw as raw_io
@@ -665,11 +678,23 @@ def flagship(torch, np, F, dev, card):
         library_ms = time_ms(torch, library, 10)
     bound, f_ms, b_ms = k6_bound(skip.shape, 3)
     log({"phase": "dec1_time", "shape": list(skip.shape), "ms": k6_ms,
-         "bound_ms": bound, "flop_ms": f_ms, "byte_ms": b_ms,
+         "bound_ms": bound, "share_of_bound": bound / k6_ms,
+         "flop_ms": f_ms, "byte_ms": b_ms,
          "plain_ms": plain_ms, "port_unfused_sequence_ms": unfused_ms,
          "library_sequence_ms": library_ms,
          "library_sequence_mask_agreement": lib_agree.item(),
          "tflops": f_ms * PEAK_BF16_FLOPS / 1e12 / k6_ms, **card})
+    # Every C the kernel takes, at B = 32, 512² on random operands (the
+    # flagship serves C = 64; the others must be right, not fast).
+    for c in dec1.KERNEL_CHANNELS:
+        ops_c = k6_inputs(torch, FLAGSHIP_BATCH, 512, 512, c, 3, dev, 500 + c)
+        c_ms = time_ms(torch, lambda: dec1.dec1_fused_masks(*ops_c), 5)
+        c_bound = k6_bound(ops_c[1].shape, 3)[0]
+        log({"phase": "dec1_time_per_c", "C": c,
+             "shape": list(ops_c[1].shape), "ms": c_ms, "bound_ms": c_bound,
+             "share_of_bound": c_bound / c_ms, **card})
+        del ops_c
+    log({"phase": "dec1_phases", **dec1_phases.run(), **card})
     k6_record = {
         "name": "dec1_fused", "route": "cuda", "source": DEC1_SOURCE,
         "replaces": REPLACES["dec1_fused"],
@@ -723,6 +748,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from unetseg_tpu_torch import checkpoint, engine, service
+    from unetseg_tpu_torch.benchmarks import dec1_phases
     from unetseg_tpu_torch.data import synth_batch, synth_slice
     from unetseg_tpu_torch.io import native, raw as raw_io
     from unetseg_tpu_torch.metrics import foreground_iou
@@ -754,13 +780,20 @@ def main() -> int:
 
     # -- 2. build (every kernel and the host library, all at once) ----------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
         for fut in [pool.submit(lib.load) for lib in (
-                conv, cc_kernel, dec1, halo_copy, native)]:
+                conv, cc_kernel, dec1, halo_copy, native, dec1_phases)]:
             fut.result()
     log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3)})
     for r in conv.resources():
         log({"phase": "conv_resources", **r})
+    k6_res = dec1.resources()
+    for r in k6_res:
+        log({"phase": "dec1_resources", **r})
+    if len(k6_res) != len(dec1.KERNEL_CHANNELS) or \
+            any(r["spill_bytes"] for r in k6_res):
+        raise AssertionError(f"K6: want {len(dec1.KERNEL_CHANNELS)} "
+                             f"instantiations without spills, got {k6_res}")
 
     # -- 3. kernel parity on the card --------------------------------------
     max_err = check_parity(torch, conv, dev, SLIM4_CONVS + EXTRA_CONVS, 8)

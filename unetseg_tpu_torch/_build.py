@@ -2,7 +2,8 @@
 
 Every native library of the port (the host C++ library and the CUDA
 kernels) is compiled here: the output name carries a hash of the command and
-of every source, so an edited source is never served from a stale library.
+of every source and header it names, so an edited file is never served from
+a stale library.
 Concurrent builds (pytest-xdist workers, threads) serialise on a file
 lock, and the library appears under its final name only through
 ``os.replace``, so no process ever loads a half-written file.  What the
@@ -34,12 +35,13 @@ def nvcc() -> str:
 
 
 def build_shared(name: str, compiler: Sequence[str], sources: Sequence[str],
-                 timeout: float = 600.0) -> str:
+                 deps: Sequence[str] = (), timeout: float = 600.0) -> str:
     """Compile ``sources`` with ``compiler + sources + ["-o", out]`` into
-    ``BUILD_DIR`` and return the library's path.  Raises on failure with
-    the compiler's output."""
+    ``BUILD_DIR`` and return the library's path.  ``deps`` are files the
+    sources include: they are hashed with the sources but not passed to the
+    compiler.  Raises on failure with the compiler's output."""
     h = hashlib.sha256(" ".join(compiler).encode())
-    for src in sources:
+    for src in (*sources, *deps):
         with open(src, "rb") as f:
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")

@@ -37,8 +37,11 @@ import torch.nn.functional as F
 
 from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc, read_log
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "conv3x3.cu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+SOURCE = os.path.join(CSRC, "conv3x3.cu")
+#: The Hopper helpers the kernel sources include (hashed into the build).
+HEADER = os.path.join(CSRC, "hopper.cuh")
 
 #: Kernel launches per variant since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"conv3x3_bias_act": 0,
@@ -109,7 +112,7 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             path = build_shared("libconv3x3",
                                 [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"],
-                                [SOURCE])
+                                [SOURCE], deps=[HEADER])
             lib = ctypes.CDLL(path)
             lib.utconv3x3_bf16.restype = ctypes.c_int
             lib.utconv3x3_bf16.argtypes = (

@@ -17,34 +17,162 @@ logits = f32(c2.Wh) + bh in f32; the class is the first max.  ``round``
 is to x's dtype, so in float32 nothing rounds and the plain version is the
 module's own ``decode_mask(forward(x))``, bit for bit.
 
+The kernel's tiling is decided here, in :func:`tile_plan`, and passed to
+it, so the CPU tests cover the plan: TH x TW output tiles whose [skip, up]
+planes are IN_W = TW + 4 pixels wide, the convs computed on that flat grid
+(wrap columns dropped), and a ring of weight slots filling the rest of the
+block's shared memory.
+
 ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
+import re
 import threading
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
-from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc
-from unetseg_tpu_torch.ops.conv import conv3x3_bias_act_plain
+from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc, read_log
+from unetseg_tpu_torch.ops.conv import (HEADER, conv3x3_bias_act_plain,
+                                        parse_ptxas)
 from unetseg_tpu_torch.ops.decode import decode_mask
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "dec1_fused.cu")
-#: Output channels of the level the kernel is built for (shared memory
-#: bounds it: 217 KB of the block's 227 KB at C = 96).
+#: Output channels of the level the kernel is built for.
 KERNEL_CHANNELS = (16, 32, 48, 64, 80, 96)
 MAX_CLASSES = 8
+#: Shared memory a block may use on the H100, bytes.
+SMEM_LIMIT = 232448
+MAX_STAGES = 8
+#: Tile widths tried (IN_W = TW + 4 = 16, 32 or 64 pixels).
+TILE_WIDTHS = (12, 28, 60)
+#: Accumulator budget per consumer thread (floats) and the M slices of 64
+#: rows that each of the two consumer warpgroups may hold.
+ACC_FLOATS = 128
+CONSUMERS = 2
 
 #: Kernel launches since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"dec1_fused": 0}
 
+# The entry point's own error codes (CUDA's are positive).
+_ERRORS = {-1: "tile plan refused", -2: "no cuTensorMapEncodeTiled in the "
+           "driver", -3: "tensor map refused"}
+
 _lock = threading.Lock()
 _lib = None
+_lib_path = None
+
+
+class TilePlan(NamedTuple):
+    """How the kernel cuts one level: see :func:`tile_plan`."""
+    th: int       # output rows per tile (even)
+    tw: int       # output columns per tile (even)
+    in_w: int     # plane width in pixels: tw + 4 (a 2-pixel halo each side)
+    stages: int   # weight ring slots
+    smem: int     # dynamic shared memory, bytes
+    bkc: int      # channels per swizzle row of the skip, up and c1 planes
+    bkx: int      # channels per swizzle row of the x plane
+    n_pad: int    # conv output channels: C rounded up to 64 (wgmma M)
+    n_x: int      # wgmma N of the up-GEMM: the x pixels under the tile
+    n_c1: int     # wgmma N of conv1 per warpgroup: half its grid
+    n_c2: int     # wgmma N of conv2 per warpgroup: half its grid
+    tiles_h: int
+    tiles_w: int
+    grid: int     # blocks: B * tiles_h * tiles_w
+
+
+def _chunk(c: int) -> int:
+    return 64 if c % 64 == 0 else 32 if c % 32 == 0 else 16
+
+
+def _round1024(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def geometry(C: int, th: int, tw: int, stages: int) -> dict:
+    """The kernel's grids and shared-memory layout for a tile (``Geo`` in
+    ``dec1_fused.cu``).  conv1 runs on the (th + 2) x in_w grid, conv2 on
+    th x in_w, each warpgroup on one half; the up-GEMM on all x pixels."""
+    bkc, bkx = _chunk(C), _chunk(2 * C)
+    n_pad = -(-C // 64) * 64
+    in_w, in_h = tw + 4, th + 4
+    m1, m2, mx = (th + 2) * in_w, th * in_w, (in_w // 2) * (in_h // 2)
+    # A plane is read up to 2 * in_w + 2 rows past a grid row: two rows of
+    # slack past the input planes and past c1.
+    plane_in = _round1024((in_h * in_w + 2) * 2 * bkc)
+    plane_c1 = _round1024((m1 + 2) * 2 * bkc)
+    plane_x = _round1024(mx * 2 * bkx)
+    slot = max(bkc * n_pad, bkx * 64) * 2
+    params = 4 * (C + 2 * n_pad + MAX_CLASSES * n_pad + MAX_CLASSES)
+    fixed = (1024 + 2 * (C // bkc) * plane_in
+             + max(C // bkc * plane_c1, 2 * C // bkx * plane_x) + params + 16)
+    return {"bkc": bkc, "bkx": bkx, "n_pad": n_pad, "in_w": in_w,
+            "in_h": in_h, "m1": m1, "m2": m2, "mx": mx, "slot": slot,
+            "fixed": fixed, "smem": fixed + stages * (slot + 16)}
+
+
+def _fits(C: int, g: dict) -> bool:
+    """The tile's wgmma N (<= 256, multiples of 8) and each consumer
+    thread's accumulators (<= ``ACC_FLOATS``) fit: a warpgroup holds its
+    half of a conv grid for every 64 output channels, and the up-GEMM's
+    x pixels for every other 64 of its 4C columns."""
+    n1, n2, nx = g["m1"] // 2, g["m2"] // 2, g["mx"]
+    blocks, pieces = g["n_pad"] // 64, -(-4 * C // 64 // CONSUMERS)
+    return (max(n1, n2, nx) <= 256 and n1 % 8 == 0 and n2 % 8 == 0
+            and nx % 8 == 0 and blocks * n1 // 2 <= ACC_FLOATS
+            and pieces * nx // 2 <= ACC_FLOATS)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_shape(C: int) -> tuple:
+    """(th, tw, stages) for C: of the tiles whose planes, two weight slots
+    and accumulators fit, the one that executes the fewest products per
+    output pixel (ties: the larger tile).  ``dec1_fused.cu`` holds the
+    same table (``TILES``), and its entry point refuses any other."""
+    best = None
+    for tw in TILE_WIDTHS:
+        for th in range(2, 62, 2):
+            g = geometry(C, th, tw, 0)
+            stages = min(MAX_STAGES, (SMEM_LIMIT - g["fixed"])
+                         // (g["slot"] + 16))
+            if stages < 2 or th + 4 > 256 or not _fits(C, g):
+                continue
+            work = (g["mx"] * 8 * C * C + g["m1"] * 18 * C * g["n_pad"]
+                    + g["m2"] * 9 * C * g["n_pad"])
+            key = (work / (th * tw), -th * tw)
+            if best is None or key < best[0]:
+                best = (key, (th, tw, stages))
+    return best[1]
+
+
+def tile_plan(B: int, H: int, W: int, C: int) -> TilePlan:
+    """The kernel's tiling of a level with skip (B, H, W, C).
+
+    A tile is TH x TW output pixels of one image (12 x 28 at C = 64); its
+    planes span the tile with a 2-pixel halo, IN_W = TW + 4 pixels wide,
+    and conv1 and conv2 run on that flat grid.  The tile shape depends on
+    C only; a ragged last tile, or an image smaller than one tile, is
+    masked by the kernel.  Raises on what the kernel does not take: C not
+    in ``KERNEL_CHANNELS``, H or W odd, an empty batch, a grid past 2^31."""
+    if C not in KERNEL_CHANNELS or min(B, H, W) < 1 or H % 2 or W % 2:
+        raise ValueError(f"dec1 tile plan: needs C in {KERNEL_CHANNELS}, "
+                         f"H and W even, B >= 1; got B={B} H={H} W={W} C={C}")
+    th, tw, stages = _tile_shape(C)
+    g = geometry(C, th, tw, stages)
+    tiles_h, tiles_w = -(-H // th), -(-W // tw)
+    grid = B * tiles_h * tiles_w
+    if grid >= 2 ** 31:
+        raise ValueError(f"dec1 tile plan: {grid} tiles, more than the grid "
+                         f"holds")
+    return TilePlan(th, tw, g["in_w"], stages, g["smem"], g["bkc"], g["bkx"],
+                    g["n_pad"], g["mx"], g["m1"] // 2, g["m2"] // 2, tiles_h,
+                    tiles_w, grid)
 
 
 def reset_launches() -> None:
@@ -54,16 +182,39 @@ def reset_launches() -> None:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use.  Raises if it cannot be."""
-    global _lib
+    global _lib, _lib_path
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build_shared(
-                "libdec1_fused", [nvcc(), *NVCC_FLAGS], [SOURCE]))
+            path = build_shared("libdec1_fused",
+                                [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"],
+                                [SOURCE], deps=[HEADER])
+            lib = ctypes.CDLL(path)
             lib.utdec1_fused_bf16.restype = ctypes.c_int
             lib.utdec1_fused_bf16.argtypes = (
-                [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-            _lib = lib
+                [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            lib.utdec1_smem_bytes.restype = ctypes.c_int
+            lib.utdec1_smem_bytes.argtypes = [ctypes.c_int] * 4
+            _lib, _lib_path = lib, path
         return _lib
+
+
+def resources() -> list:
+    """Per kernel instantiation (one per C), what ``nvcc -Xptxas -v``
+    reported when the library was built (registers, spills, static shared
+    memory) and the dynamic shared memory of its tile plan: a list of
+    dicts with keys ``C``, ``th``, ``tw``, ``stages``, ``registers``,
+    ``spill_bytes``, ``smem_static``, ``smem_dynamic``."""
+    lib = load()
+    out = []
+    for name, info in parse_ptxas(read_log(_lib_path)).items():
+        m = re.search(r"dec1_wgmma_kernelILi(\d+)E", name)
+        if m:
+            c = int(m.group(1))
+            th, tw, stages = _tile_shape(c)
+            out.append({"C": c, "th": th, "tw": tw, "stages": stages, **info,
+                        "smem_dynamic": lib.utdec1_smem_bytes(c, th, tw,
+                                                              stages)})
+    return sorted(out, key=lambda r: r["C"])
 
 
 def up_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -157,7 +308,8 @@ def dec1_fused_masks(x, skip, up_w, up_b, w1, b1, w2, b2, wh, bh
     ``[skip, up]``; w2: (3, 3, C, C); wh: (C, K); biases (C,) and (K,).
 
     CUDA tensors must be bf16, contiguous and 16-byte aligned, with C in
-    ``KERNEL_CHANNELS`` and K <= ``MAX_CLASSES``; anything else raises.
+    ``KERNEL_CHANNELS`` and K <= ``MAX_CLASSES``; anything else raises.  The
+    kernel runs :func:`tile_plan`'s tiling.
     """
     ops = (x, skip, up_w, up_b, w1, b1, w2, b2, wh, bh)
     _check(*ops)
@@ -169,21 +321,27 @@ def dec1_fused_masks(x, skip, up_w, up_b, w1, b1, w2, b2, wh, bh
         raise TypeError(f"dec1_fused kernel takes bf16 only, got {x.dtype}")
     n, h, w, c = skip.shape
     k = wh.shape[1]
-    if c not in KERNEL_CHANNELS or k > MAX_CLASSES or n >= 2 ** 16:
-        raise ValueError(f"dec1_fused kernel needs C in {KERNEL_CHANNELS}, "
-                         f"at most {MAX_CLASSES} classes and N < 65536 (its "
-                         f"grid's z), got C={c}, K={k}, N={n}")
+    if c not in KERNEL_CHANNELS or k > MAX_CLASSES:
+        raise ValueError(f"dec1_fused kernel needs C in {KERNEL_CHANNELS} "
+                         f"and at most {MAX_CLASSES} classes, got C={c}, "
+                         f"K={k}")
     if not all(t.is_contiguous() for t in ops) or \
             any(t.data_ptr() % 16 for t in (x, skip, up_w, w1, w2)):
         raise ValueError("dec1_fused kernel needs contiguous operands and "
                          "16-byte aligned x, skip, up_w, w1, w2")
+    plan = tile_plan(n, h, w, c)
+    lib = load()
+    if lib.utdec1_smem_bytes(c, plan.th, plan.tw, plan.stages) != plan.smem:
+        raise RuntimeError("dec1_fused: the kernel's shared-memory layout "
+                           "differs from tile_plan's")
     out = torch.empty((n, h, w), dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):  # the launch goes to x's card
-        err = load().utdec1_fused_bf16(
+        err = lib.utdec1_fused_bf16(
             *(t.data_ptr() for t in ops), out.data_ptr(), n, h, w, c, k,
+            plan.th, plan.tw, plan.stages,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"dec1_fused kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"dec1_fused kernel launch failed: "
+                           f"{_ERRORS.get(err, f'CUDA error {err}')}")
     LAUNCHES["dec1_fused"] += 1
     return out
