@@ -9,16 +9,18 @@ Phases, each of which fails the run (non-zero exit) on error:
 2. Build: all four kernel sources (conv, CCL, fused last decoder level,
    halo copy; nvcc, sm_90a), K6's phase-stamped build and the host C++
    library, all at once; then
-   the conv kernel's and K6's registers, spills and shared memory per
-   instantiation, as ``nvcc -Xptxas -v`` reported them, one line each
-   (``conv_resources``, ``dec1_resources``); a spill in K6 fails the run.
+   the conv kernel's, K6's and the CCL passes' registers, spills and
+   shared memory per instantiation, as ``nvcc -Xptxas -v`` reported them,
+   one line each (``conv_resources``, ``dec1_resources``,
+   ``cc_resources``); a spill in K6 or K3 fails the run.
 3. Kernel parity: the conv kernel against its plain PyTorch version on
    slim4's ten conv shapes at batch 8, plus two ragged shapes, and on the
    tiling's edge cases at batch 3 (several column tiles with a remainder,
    fewer rows than a tile, D = 112, C = 48, 80, 96); the CCL kernel
-   (``cc_label`` and ``propagate_min``) bit for bit against its plain
-   version on the CCL test shapes at full size and a batch of 128 512²
-   50% speckles.
+   (``cc_label``, ``cc_label_stats`` and ``propagate_min``) bit for bit
+   against its plain version on the CCL test shapes at full size, a batch
+   of 128 512² 50% speckles (also over 8 x 16 tiles) and the edges of its
+   tile plan (``cc_edge_cases``); the stats table where it is defined.
 4. Main path, host cleanup, with the launch counters set to 0 just before
    it: ``initialize_engine`` on models/flagship_slim4.ckpt;
    ``process_batch`` twice on 256 synthetic 768² RAWs at batch 128, tier
@@ -27,7 +29,7 @@ Phases, each of which fails the run (non-zero exit) on error:
    slices agree with the plain path run on the CPU.  Every forward pass
    must launch the conv kernel exactly 10 times and the CCL kernel never.
    Then the CCL kernel against its plain version on a batch of 128 real
-   512² argmax masks, their inverses and their opened foregrounds.
+   512² argmax masks: their inverses and their opened foregrounds.
 5. Main path, device cleanup, with the counters set to 0 just before it:
    ``initialize_engine(..., device_postprocess=True)``, ``process_batch``
    twice on the same RAWs, ``process_single_image``.  Every forward must
@@ -45,11 +47,12 @@ Phases, each of which fails the run (non-zero exit) on error:
    idle share of each (torch.profiler); per conv shape at batch 128 the
    kernel, library (F.conv2d, channels-last bf16, without the ReLU) and
    plain times beside the bound; the CCL kernel's and its plain version's
-   time per call on the real masks and on the speckle, beside its bound;
-   the whole device cleanup's time per batch beside the host C++ cleanup's
-   wall time.  The kernels record sums each conv variant's times over the
-   shapes of one forward, and the CCL kernel's over the two calls of one
-   cleanup batch.
+   time per call, labels alone and with stats, on the real masks and on
+   the speckle, beside its bound; the whole device cleanup's time per batch
+   beside the host C++ cleanup's wall time, and its device time by kernel
+   (no scatter or index_fill may remain).  The kernels record sums each
+   conv variant's times over the shapes of one forward, and the CCL
+   kernel's the two stats calls of one cleanup batch.
 
 8. Flagship parity: the conv kernel against its plain version on the 16
    unfused conv shapes of the flagship ``ModelConfig()`` (depth 4, base 64,
@@ -82,6 +85,14 @@ Phases, each of which fails the run (non-zero exit) on error:
    bound and ``.contiguous()``; then
    ``unetseg_tpu_torch.benchmarks.exp_bw.main()`` once, with the copy
    counters set to 0 just before it (the probe is K4's and K5's path).
+
+11. Configs the card used to refuse (``configs``): a stem-1 base-128 model
+   and the 12-class stem-1 model with 4 input channels through
+   ``UNet.masks`` (the unfused route: no K6 launch, the conv kernel once
+   per 3x3 conv), card vs CPU masks within ``CPU_TIE_ULPS`` of
+   ``dec1.near_tie``; a base-8 model (D = 8 padded to 16) the same way and
+   served by the engine; a float32 model refused by ``initialize_engine``
+   with the reason in its log.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -147,6 +158,11 @@ FLAGSHIP_BATCH = 32
 # must lie.
 CPU_AGREEMENT = 0.995
 CPU_TIE_ULPS = 4
+# Slices of the phase-11 config checks (each model on the card and the CPU),
+# and their least card-vs-CPU mask agreement: seeded models with a centred
+# head (12 classes for one) hold more near ties than the flagship's check.
+CONFIG_BATCH = 2
+CONFIG_AGREEMENT = 0.99
 # K6 parity cases: (name, (N, H, W, C, classes, seed), exact).
 K6_CASES = [("random", (2, 512, 512, 64, 3, 1), False),
             ("exact_ties", (1, 256, 256, 64, 3, 2), True),
@@ -208,9 +224,10 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_pipeline(torch, fn, iters: int = 5) -> dict:
+def profile_pipeline(torch, fn, iters: int = 5, top: int = 10) -> dict:
     """Device time by kernel over ``iters`` calls (torch.profiler), and the
-    device's idle share of the window's wall time."""
+    device's idle share of the window's wall time; ``ops`` names every
+    event the window recorded, host operators and device kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -232,7 +249,8 @@ def profile_pipeline(torch, fn, iters: int = 5) -> dict:
             "device_ms_per_iter": busy_us / iters / 1e3,
             "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
             "top": [{"kernel": k[:90], "ms_per_iter": t / iters / 1e3}
-                    for t, k in rows[:10]]}
+                    for t, k in rows[:top]],
+            "ops": sorted({e.key for e in prof.key_averages()})}
 
 
 def check_parity(torch, conv, device, shapes, batch):
@@ -305,36 +323,111 @@ def cc_cases(np):
     return cases
 
 
-def check_cc(torch, cc, cc_kernel, name, fg, seed):
+def cc_edge_cases(np):
+    """(name, (B, H, W) bool mask, tile) at the edges of K3's tile plan
+    (``ops/cc_kernel.tile_plan``; None is the default tile, 32 x 128 at
+    W >= 128): diagonal links exactly on tile corners, with ragged last
+    tiles both ways; diagonal lines across the kernel's 32-pixel row
+    segments; the spiral and the serpentine over small tiles, so
+    they cross tile edges many times; random masks over ragged small
+    tiles and over 1 x 1 tiles (every link crosses a tile edge); images of
+    one row and one column."""
+    def corners(b, h, w, th, tw, seed):
+        fg = np.random.default_rng(seed).random((b, h, w)) > 0.97
+        for i in range(b):
+            for k, y0 in enumerate(range(th, h, th)):
+                for j, x0 in enumerate(range(tw, w, tw)):
+                    fg[i, y0 - 2:y0 + 2, x0 - 2:x0 + 2] = False
+                    kind = (i + j + k) % 4
+                    if kind in (0, 2):  # NW-SE across the corner
+                        fg[i, y0 - 1, x0 - 1] = fg[i, y0, x0] = True
+                    if kind in (1, 2):  # NE-SW across the corner
+                        fg[i, y0 - 1, x0] = fg[i, y0, x0 - 1] = True
+                    if kind == 3 and y0 + 1 < h and x0 + 1 < w:
+                        # a diamond around the corner pixel: three tiles
+                        fg[i, y0 - 1, x0] = fg[i, y0, x0 - 1] = True
+                        fg[i, y0, x0 + 1] = fg[i, y0 + 1, x0] = True
+        return fg
+
+    # 1-pixel diagonal lines, both ways, 9 apart: every step that crosses a
+    # 32-pixel segment boundary is a diagonal link alone.
+    diagonals = np.zeros((2, 96, 300), bool)
+    for y in range(96):
+        for c in range(-96, 400, 9):
+            if 0 <= y + c < 300:
+                diagonals[0, y, y + c] = True
+            if 0 <= c - y < 300:
+                diagonals[1, y, c - y] = True
+    base = dict(cc_cases(np))
+    rng = np.random.default_rng(23)
+    return [("corners_default", corners(2, 70, 300, 32, 128, 1), None),
+            ("diagonals_default", diagonals, None),
+            ("diagonals_16x64", diagonals, (16, 64)),
+            ("corners_8x16", corners(2, 37, 75, 8, 16, 2), (8, 16)),
+            ("spiral_4x8", base["spiral"][None], (4, 8)),
+            ("serpentine_4x8", base["serpentine"][None], (4, 8)),
+            ("serpentine_1x128", base["serpentine"][None], (1, 128)),
+            ("random_8x16", rng.random((3, 70, 63)) > 0.45, (8, 16)),
+            ("random_1x1", rng.random((2, 9, 7)) > 0.5, (1, 1)),
+            ("row", rng.random((2, 1, 300)) > 0.3, None),
+            ("column_7x1", rng.random((2, 300, 1)) > 0.3, (7, 1))]
+
+
+def check_cc(torch, cc, cc_kernel, name, fg, seed, tile=None):
     """K3 against its plain version on one (B, H, W) or (H, W) CUDA mask:
-    cc_label on the mask, propagate_min on random seeds over it.  Returns
-    the max abs difference (0, or the run fails)."""
-    got = cc_kernel.cc_label(fg)
+    cc_label and cc_label_stats on the mask, propagate_min on random seeds
+    over it; ``tile`` overrides the kernel's tile.  The stats table is
+    compared where it is defined: at every pixel's root slot (each root, and
+    each image's background slot).  Returns the max abs difference (0, or
+    the run fails)."""
+    got = cc_kernel.cc_label(fg, tile=tile)
+    got_s, got_t = cc_kernel.cc_label_stats(fg, tile=tile)
     want = cc.cc_label(fg)
+    want_t = cc_kernel.cc_label_stats_plain(fg)[1]
     size = fg.shape[-2] * fg.shape[-1]
+    b = want.numel() // size
+    slots = (want.reshape(b, size).long() + torch.arange(
+        b, device=fg.device)[:, None] * (size + 1)).reshape(-1)
     g = torch.Generator(device=fg.device).manual_seed(seed)
     seeds = torch.randint(0, size, fg.shape, generator=g, device=fg.device,
                           dtype=torch.int32)
     init = torch.where(fg, seeds, size)
-    got_p = cc_kernel.propagate_min(init, size)
+    got_p = cc_kernel.propagate_min(init, size, tile=tile)
     want_p = cc_kernel.propagate_min_plain(init, size)
     torch.cuda.synchronize()
     err = max((got.long() - want.long()).abs().max().item(),
+              (got_s.long() - want.long()).abs().max().item(),
+              (got_t[slots].long() - want_t[slots].long()).abs().max().item(),
               (got_p.long() - want_p.long()).abs().max().item())
     log({"phase": "cc_parity", "case": name, "shape": list(fg.shape),
+         "tile": list(tile) if tile else None,
          "fg_share": fg.float().mean().item(),
          "components": int((want.reshape(-1, size) == torch.arange(
              size, device=fg.device)).sum().item()),
+         "touching_border": int(cc_kernel.stats_touch(
+             want_t[slots]).sum().item()),
          "max_abs_err": err})
-    if err or got.dtype != torch.int32 or got.shape != fg.shape:
+    if err or got.dtype != torch.int32 or got.shape != fg.shape or \
+            got_t.shape != (b * (size + 1),):
         raise AssertionError(f"cc kernel differs from its plain version on "
                              f"{name}: max abs err {err}")
     return err
 
 
-def cc_bound_ms(fg) -> float:
-    """A bool mask read once and the int32 labels written once."""
-    return fg.numel() * 5 / PEAK_HBM_BYTES * 1e3
+def cc_bound_ms(fg, roots: int = 0) -> float:
+    """A bool mask read once and the int32 labels written once; with the
+    stats, also each of the ``roots`` stats slots written once (every
+    component's root and each image's background slot)."""
+    return (fg.numel() * 5 + roots * 4) / PEAK_HBM_BYTES * 1e3
+
+
+def cc_roots(torch, cc_kernel, fg) -> int:
+    """The stats slots this mask's labels define: its components, plus one
+    background slot per image."""
+    size = fg.shape[-2] * fg.shape[-1]
+    lbl = cc_kernel.cc_label(fg).reshape(-1, size)
+    return int((lbl == torch.arange(size, device=fg.device)).sum().item()
+               ) + lbl.shape[0]
 
 
 def compare_dirs(a, b, names):
@@ -560,13 +653,7 @@ def flagship(torch, np, F, dev, card):
             c2_cpu = dec1.dec1_head_input_plain(*trunk_cpu, *weights)
         differ = got != want
         k6_bad = int(((got != want_k6) & ~tie_k6).sum())
-        # Where the whole path differs, the CPU's top-2 margin in bf16 ulps
-        # of the larger absolute head sum (dec1.near_tie's measure).
-        ratio = 0.0
-        for r in (1, 2, 4, 8, 16, 32, 64):
-            if not (differ & ~dec1.near_tie(c2_cpu, *head, ulps=r)).any():
-                ratio = r
-                break
+        ratio = near_tie_ulps(dec1, differ, c2_cpu, *head)
         agree = 1 - differ.float().mean().item()
         trunk_dev_rel = max(((a.float() - b.float()).abs().max() /
                              b.float().abs().max()).item()
@@ -630,8 +717,9 @@ def flagship(torch, np, F, dev, card):
     log({"phase": "flagship_throughput", "batch": FLAGSHIP_BATCH,
          "ms_per_batch": pipe_ms,
          "slices_per_s": FLAGSHIP_BATCH / pipe_ms * 1e3, **card})
-    log({"phase": "flagship_profile",
-         **profile_pipeline(torch, lambda: eng._pipeline(u8_32)), **card})
+    prof = profile_pipeline(torch, lambda: eng._pipeline(u8_32))
+    del prof["ops"]
+    log({"phase": "flagship_profile", **prof, **card})
 
     for i, shape in enumerate(FLAGSHIP_CONVS):
         x, w, b = conv_inputs(torch, shape, FLAGSHIP_BATCH, dev, seed=400 + i)
@@ -737,6 +825,127 @@ def flagship(torch, np, F, dev, card):
     return records
 
 
+def near_tie_ulps(dec1, differ, c2, wh, bh):
+    """The fewest bf16 ulps of the absolute head sum (``dec1.near_tie``'s
+    measure) within which every differing pixel lies, or None past 64."""
+    for r in (1, 2, 4, 8, 16, 32, 64):
+        if not (differ & ~dec1.near_tie(c2, wh, bh, ulps=r)).any():
+            return r
+    return None
+
+
+def check_config(torch, np, name, cfg, x, dev, card, seed=7):
+    """One seeded model on the card against the CPU path: ``UNet.masks`` on
+    ``x`` (NHWC, on the CPU) with the head bias centred on the card's
+    logits; equal masks but for near ties, no K6 launch where the route is
+    unfused, and the conv kernel once per 3x3 conv."""
+    from unetseg_tpu_torch.models import registry, unet
+    from unetseg_tpu_torch.ops import conv, dec1
+
+    params = unet.init(cfg, torch.Generator().manual_seed(seed))
+    with torch.inference_mode():
+        logits = registry.build(params, cfg, dev)(x.to(dev))
+    params["head"]["b"] = -logits.reshape(-1, cfg.num_classes).median(
+        0).values.cpu().numpy()
+    model = registry.build(params, cfg, dev)
+    cpu_model = registry.build(params, cfg, "cpu")
+    conv.reset_launches()
+    dec1.reset_launches()
+    with torch.inference_mode():
+        got = model.masks(x.to(dev)).cpu()
+        launches = {**conv.LAUNCHES, **dec1.LAUNCHES}
+        want = cpu_model.masks(x)
+        c2 = cpu_model.decoder[-1](*cpu_model._trunk(x))
+    differ = got != want
+    ratio = near_tie_ulps(dec1, differ, c2, cpu_model.head_weight,
+                          cpu_model.head_bias)
+    agree = 1 - differ.float().mean().item()
+    convs = 4 * cfg.depth + 2
+    log({"phase": "config", "config": name, "route": model.route,
+         "shape": list(x.shape), "launches": launches,
+         "cpu_mask_agreement": agree, "differing_pixels_within_ulps": ratio,
+         "classes_seen": int(torch.unique(got).numel()), **card})
+    if model.route != "unfused" or launches["dec1_fused"] or \
+            sum(v for k, v in launches.items() if k != "dec1_fused") != convs:
+        raise AssertionError(f"{name}: route {model.route}, {launches}: want "
+                             f"the unfused route, {convs} convs, no K6")
+    if agree < CONFIG_AGREEMENT or not ratio or ratio > CPU_TIE_ULPS:
+        raise AssertionError(f"{name}: card vs CPU masks agree on {agree}, "
+                             f"differing pixels within {ratio} ulps")
+    return params
+
+
+def configs(torch, np, dev, card):
+    """Phase 11: configs the card used to refuse.  A stem-1 base-128 model
+    and the 12-class stem-1 model of benchmarks/exp_slim_arch.py (4 input
+    channels: a space-to-depth of the slice) through ``UNet.masks``; a
+    base-8 model (D = 8 padded to 16) through ``UNet.masks`` and served by
+    the engine; a float32 model refused by ``initialize_engine`` with its
+    reason in the log."""
+    from unetseg_tpu_torch import checkpoint, engine
+    from unetseg_tpu_torch.config import ModelConfig
+    from unetseg_tpu_torch.data import synth_slice
+    from unetseg_tpu_torch.io import native, raw as raw_io
+    from unetseg_tpu_torch.models import unet
+    from unetseg_tpu_torch.ops import conv, dec1, preprocess
+
+    rng = np.random.default_rng(31)
+    raws = [synth_slice(rng, 768)[0] for _ in range(CONFIG_BATCH)]
+
+    def inputs(size):
+        u8 = np.stack([native.preprocess_u8(r, size) for r in raws])
+        return preprocess.model_input_from_u8(torch.from_numpy(u8))[..., None]
+
+    check_config(torch, np, "stem1_base128", ModelConfig(base_channels=128),
+                 inputs(256), dev, card)
+    check_config(torch, np, "stem1_in4_classes12",
+                 ModelConfig(in_channels=4, num_classes=12),
+                 unet.space_to_depth(inputs(512), 2), dev, card)
+    base8 = ModelConfig(base_channels=8)
+    params = check_config(torch, np, "stem1_base8", base8, inputs(512), dev,
+                          card)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "models", "base8.ckpt")
+        os.makedirs(os.path.dirname(ckpt))
+        checkpoint.save(ckpt, params, base8)
+        paths = []
+        for i, r in enumerate(raws):
+            paths.append(os.path.join(tmp, f"slice_{i:03d}.raw"))
+            raw_io.write_raw(paths[-1], r)
+        conv.reset_launches()
+        dec1.reset_launches()
+        if not engine.initialize_engine(ckpt, log_dir=os.path.join(tmp, "log")):
+            raise AssertionError("initialize_engine(base 8) returned False")
+        eng = engine.get_engine()
+        out = os.path.join(tmp, "out")
+        ok, failed = engine.process_batch(paths, 768, 768, [out] * len(paths),
+                                          batch_size=CONFIG_BATCH)
+        launches = {**conv.LAUNCHES, **dec1.LAUNCHES}
+        log({"phase": "config_served", "config": "stem1_base8",
+             "processed": ok, "failed": failed, "forwards": eng.forwards,
+             "launches": launches, "artifacts": len(os.listdir(out))})
+        if (ok, failed) != (len(paths), 0) or launches["dec1_fused"] or \
+                launches["conv3x3_bias_act_small_c"] + launches[
+                    "conv3x3_bias_act"] != (4 * base8.depth + 2) * eng.forwards:
+            raise AssertionError("base-8 model: not served through the conv "
+                                 "kernel alone")
+        engine.cleanup_resources()
+
+        f32 = os.path.join(tmp, "models", "f32.ckpt")
+        f32_cfg = ModelConfig(base_channels=16, depth=1,
+                              compute_dtype="float32")
+        checkpoint.create(f32, f32_cfg, seed=0)
+        log_dir = os.path.join(tmp, "log_f32")
+        refused = not engine.initialize_engine(f32, log_dir=log_dir)
+        engine.cleanup_resources()
+        with open(os.path.join(log_dir, "segmentation_log.txt")) as f:
+            reason = [line.strip() for line in f if "error" in line]
+        log({"phase": "config_f32", "refused": refused, "reason": reason})
+        if not refused or not any("ROADMAP.md" in r for r in reason):
+            raise AssertionError(f"float32 on CUDA: refused {refused}, "
+                                 f"reason {reason}")
+
+
 def main() -> int:
     import torch
 
@@ -794,6 +1003,12 @@ def main() -> int:
             any(r["spill_bytes"] for r in k6_res):
         raise AssertionError(f"K6: want {len(dec1.KERNEL_CHANNELS)} "
                              f"instantiations without spills, got {k6_res}")
+    cc_res = cc_kernel.resources()
+    for r in cc_res:
+        log({"phase": "cc_resources", **r})
+    if len(cc_res) != 8 or any(r["spill_bytes"] for r in cc_res):
+        raise AssertionError(f"K3: want 8 kernels without spills, got "
+                             f"{cc_res}")
 
     # -- 3. kernel parity on the card --------------------------------------
     max_err = check_parity(torch, conv, dev, SLIM4_CONVS + EXTRA_CONVS, 8)
@@ -808,6 +1023,12 @@ def main() -> int:
         (128, 512, 512)) > 0.5).to(dev)
     cc_err = max(cc_err, check_cc(torch, cc, cc_kernel, "speckle", speckle,
                                   310))
+    cc_err = max(cc_err, check_cc(torch, cc, cc_kernel, "speckle_8x16",
+                                  speckle[:8], 311, (8, 16)))
+    for i, (name, fg, tile) in enumerate(cc_edge_cases(np)):
+        cc_err = max(cc_err, check_cc(torch, cc, cc_kernel, name,
+                                      torch.from_numpy(fg).to(dev), 340 + i,
+                                      tile))
 
     with tempfile.TemporaryDirectory() as tmp:
         in_dir = os.path.join(tmp, "in")
@@ -1001,8 +1222,9 @@ def main() -> int:
         log({"phase": "throughput", "pipeline": label, "batch": batch,
              "slices_per_s": batch / pipe_ms * 1e3, "ms_per_batch": pipe_ms,
              **card})
-        log({"phase": "profile", "pipeline": label,
-             **profile_pipeline(torch, lambda: e._pipeline(u8_real)), **card})
+        prof = profile_pipeline(torch, lambda: e._pipeline(u8_real))
+        del prof["ops"]
+        log({"phase": "profile", "pipeline": label, **prof, **card})
 
     per_variant = {}
     for i, shape in enumerate(SLIM4_CONVS):
@@ -1041,20 +1263,27 @@ def main() -> int:
             "library_ms": acc["library_ms"]})
 
     # K3 per call at batch 128: the two calls of one cleanup batch on the
-    # real masks (the inverse, then the opened foreground), and the speckle.
+    # real masks (the inverse, then the opened foreground), and the speckle;
+    # the labels-only entry and the stats entry the cleanup calls.
     cc_sum = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     for name, fg in (("real_inverse", inv), ("real_opened_fg", opened),
                      ("speckle", speckle)):
-        k_ms = time_ms(torch, lambda: cc_kernel.cc_label(fg), iters)
-        plain_ms = time_ms(torch, lambda: cc.cc_label(fg), 3, warmup=1)
-        bound = cc_bound_ms(fg)
-        log({"phase": "cc_time", "input": name, "shape": list(fg.shape),
-             "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound,
-             "bound_by": "bytes", "library_ms": None, **card})
-        if name != "speckle":
-            for key, val in (("ms", k_ms), ("plain_ms", plain_ms),
-                             ("bound_ms", bound)):
-                cc_sum[key] += val
+        roots = cc_roots(torch, cc_kernel, fg)
+        for entry, fn, plain, bound in (
+                ("labels", cc_kernel.cc_label, cc.cc_label, cc_bound_ms(fg)),
+                ("stats", cc_kernel.cc_label_stats,
+                 cc_kernel.cc_label_stats_plain, cc_bound_ms(fg, roots))):
+            k_ms = time_ms(torch, lambda: fn(fg), iters)
+            plain_ms = time_ms(torch, lambda: plain(fg), 3, warmup=1)
+            log({"phase": "cc_time", "input": name, "entry": entry,
+                 "shape": list(fg.shape), "components": roots - fg.shape[0],
+                 "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                 "share_of_bound": bound / k_ms, "bound_by": "bytes",
+                 "library_ms": None, **card})
+            if name != "speckle" and entry == "stats":
+                for key, val in (("ms", k_ms), ("plain_ms", plain_ms),
+                                 ("bound_ms", bound)):
+                    cc_sum[key] += val
     dev_clean_ms = time_ms(torch, lambda: postprocess.postprocess_masks(masks),
                            iters)
     host_s = []
@@ -1066,6 +1295,15 @@ def main() -> int:
          "device_ms_per_batch": dev_clean_ms,
          "host_cpp_ms_per_batch": [t * 1e3 for t in host_s],
          "host_cpus": os.cpu_count(), **card})
+    # The device cleanup alone, by kernel: no per-pixel scatter is left.
+    prof = profile_pipeline(
+        torch, lambda: postprocess.postprocess_masks(masks), top=30)
+    scatters = [k for k in prof.pop("ops")
+                if "scatter" in k.lower() or "index_fill" in k.lower()]
+    log({"phase": "cleanup_profile", "batch": batch, **prof,
+         "scatter_or_index_fill": scatters, **card})
+    if scatters:
+        raise AssertionError(f"the device cleanup still runs {scatters}")
     kernels.append({
         "name": "cc_label", "route": "cuda", "source": CC_SOURCE,
         "replaces": REPLACES["cc_label"], "launches": dev_launches["cc_label"],
@@ -1075,6 +1313,8 @@ def main() -> int:
     del u8_real, masks, masks_np, inv, opened, speckle, eng, eng_dev
     torch.cuda.empty_cache()
     kernels += flagship(torch, np, F, dev, card)
+    torch.cuda.empty_cache()
+    configs(torch, np, dev, card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

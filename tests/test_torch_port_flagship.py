@@ -222,8 +222,9 @@ def test_masks_fuse_the_last_level_for_stem_1_only(tmp_path, monkeypatch,
     if ckpt == "slim4":
         params, cfg = checkpoint.load(os.path.join(MODELS,
                                                    "flagship_slim4.ckpt"))
-    else:
-        cfg = ModelConfig(**SMALL, compute_dtype="bfloat16")
+    else:  # base 16: a width K6 is built for (base 8 takes the unfused route)
+        cfg = ModelConfig(**{**SMALL, "base_channels": 16},
+                          compute_dtype="bfloat16")
         params = unet.init(cfg, torch.Generator().manual_seed(2))
     model = registry.build(params, cfg, device="cpu")
     seen = []

@@ -22,6 +22,11 @@ def build(params: dict, cfg: ModelConfig, device: str = "cuda") -> nn.Module:
         raise NotImplementedError(
             f"compute_dtype {cfg.compute_dtype!r} is not ported")
     device = torch.device(device)
+    if device.type == "cuda" and cfg.compute_dtype == "float32":
+        raise NotImplementedError(
+            "compute_dtype 'float32' has no conv kernel on CUDA yet "
+            "(ROADMAP.md queue A, P13: the float32 conv kernel); serve "
+            "bfloat16, or pass device='cpu'")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' "
                            "explicitly to run on the CPU")

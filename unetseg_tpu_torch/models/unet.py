@@ -6,7 +6,9 @@ depth 2) 3x3 conv+ReLU stages go through ``ops.conv.conv3x3_bias_act``; the
 2x2 stride-2 up-conv and the 1x1 head stay matmuls, as JAX leaves them to
 ``lax`` outside any Pallas kernel.  :meth:`UNet.masks`, the class map the
 engine serves, runs a stem-1 model's last decoder level, head and argmax in
-one kernel instead (``ops.dec1.dec1_fused_masks``, K6).
+one kernel instead (``ops.dec1.dec1_fused_masks``, K6) when K6 is built for
+its width and classes; the route is fixed from the config when the model is
+built (:attr:`UNet.route`), the same on the CPU and on the card.
 
 The weights are cast once to the compute dtype when the module is moved
 (``module.to(dtype=...)``); JAX casts them per call, and both round each
@@ -25,7 +27,7 @@ from torch import nn
 
 from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.ops.conv import conv3x3_bias_act
-from unetseg_tpu_torch.ops.dec1 import dec1_fused_masks, up_conv
+from unetseg_tpu_torch.ops.dec1 import dec1_fused_masks, kernel_takes, up_conv
 from unetseg_tpu_torch.ops.decode import decode_mask
 
 
@@ -103,6 +105,16 @@ class DecoderStage(nn.Module):
         return self.conv2(self.conv1(x))
 
 
+def last_level_route(cfg: ModelConfig) -> str:
+    """How :meth:`UNet.masks` runs the last decoder level, head and argmax:
+    "fused" in K6, for stem-1 models whose width and class count K6 is
+    built for (``ops.dec1.kernel_takes``); else "unfused": the level's
+    convs in the conv kernel, the head a plain product, then the argmax."""
+    if cfg.stem == 1 and kernel_takes(cfg.base_channels, cfg.num_classes):
+        return "fused"
+    return "unfused"
+
+
 class UNet(nn.Module):
     """NHWC input in [0, 1] -> float32 logits (N, H, W, num_classes)."""
 
@@ -122,6 +134,7 @@ class UNet(nn.Module):
         for cout in reversed(chans):
             self.decoder.append(DecoderStage(cin, cout))
             cin = cout
+        self.route = last_level_route(cfg)
         n_out = cfg.num_classes * cfg.stem * cfg.stem
         self.head_weight = nn.Parameter(torch.zeros(chans[0], n_out),
                                         requires_grad=False)
@@ -153,11 +166,12 @@ class UNet(nn.Module):
     def masks(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC input in [0, 1] -> uint8 (N, H, W) first-max class map.
 
-        A stem-1 model runs its last decoder level, head and argmax in the
-        fused K6 kernel (``ops.dec1``); a stem-s model (s > 1), whose head
-        is followed by depth-to-space, argmaxes its logits.
+        On the "fused" route (a stem-1 model K6 is built for) the last
+        decoder level, head and argmax run in K6 (``ops.dec1``); otherwise
+        (a stem-s model, s > 1, whose head is followed by depth-to-space, or
+        a width or class count K6 does not take) the logits are argmaxed.
         """
-        if self.cfg.stem > 1:
+        if self.route == "unfused":
             return decode_mask(self(x), self.cfg.num_classes)
         x, skip = self._trunk(x)
         last = self.decoder[-1]

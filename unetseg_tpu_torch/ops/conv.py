@@ -196,6 +196,18 @@ def pad_input_channels(x: torch.Tensor, w: torch.Tensor, multiple: int = 16
     return F.pad(x, (0, extra)), F.pad(w, (0, 0, 0, extra))
 
 
+def pad_output_channels(w: torch.Tensor, b: torch.Tensor, multiple: int = 16
+                        ) -> tuple:
+    """(w, b) with w's output columns and b zero-padded up to the next
+    multiple of ``multiple``; unchanged when D already is one.  The first D
+    output channels of the padded conv are the unpadded conv's, so the
+    caller slices them back: exact, as the input-channel padding is."""
+    extra = -w.shape[3] % multiple
+    if not extra:
+        return w, b
+    return F.pad(w, (0, extra)), F.pad(b, (0, extra))
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, x.shape[3]) \
             or tuple(b.shape) != (w.shape[3],):
@@ -210,9 +222,10 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """3x3 stride-1 SAME conv + bias (+ ReLU): (B,H,W,C) x (3,3,C,D) + (D,)
     -> (B,H,W,D) in ``x.dtype``, summed in float32.
 
-    CUDA tensors must be bf16, contiguous, 16-byte aligned, with D a
-    multiple of 16; anything else raises.  C may be any size: it is
-    zero-padded to a multiple of 16 first (:func:`pad_input_channels`).
+    CUDA tensors must be bf16, contiguous and 16-byte aligned; anything
+    else raises.  C and D may be any size: the kernel gets them zero-padded
+    to multiples of 16 (:func:`pad_input_channels`,
+    :func:`pad_output_channels`) and the output is sliced back to D.
     B, H and W may be any size; the kernel runs :func:`tile_plan`'s tiling.
     """
     _check(x, w, b)
@@ -223,12 +236,11 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if not (x.dtype == w.dtype == b.dtype == torch.bfloat16):
         raise TypeError(f"conv3x3 kernel takes bf16 only, got {x.dtype}, "
                         f"{w.dtype}, {b.dtype}")
+    d_out = w.shape[3]
     x, w = pad_input_channels(x, w)
+    w, b = pad_output_channels(w, b)
     B, H, W, C = x.shape
     D = w.shape[3]
-    if D % 16:
-        raise ValueError(f"conv3x3 kernel needs D a multiple of 16, got "
-                         f"D={D}")
     if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
         raise ValueError("conv3x3 kernel needs contiguous x, w, b")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
@@ -250,4 +262,4 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                            f"{_ERRORS.get(err, f'CUDA error {err}')}")
     LAUNCHES["conv3x3_bias_act_small_c" if small_c
              else "conv3x3_bias_act"] += 1
-    return out
+    return out if D == d_out else out[..., :d_out].contiguous()

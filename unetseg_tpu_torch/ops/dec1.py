@@ -175,6 +175,12 @@ def tile_plan(B: int, H: int, W: int, C: int) -> TilePlan:
                     tiles_w, grid)
 
 
+def kernel_takes(c: int, k: int) -> bool:
+    """Whether the kernel is built for a level of C channels and K classes:
+    the route ``models.unet.UNet`` picks once, from the model's config."""
+    return c in KERNEL_CHANNELS and 1 <= k <= MAX_CLASSES
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -321,7 +327,7 @@ def dec1_fused_masks(x, skip, up_w, up_b, w1, b1, w2, b2, wh, bh
         raise TypeError(f"dec1_fused kernel takes bf16 only, got {x.dtype}")
     n, h, w, c = skip.shape
     k = wh.shape[1]
-    if c not in KERNEL_CHANNELS or k > MAX_CLASSES:
+    if not kernel_takes(c, k):
         raise ValueError(f"dec1_fused kernel needs C in {KERNEL_CHANNELS} "
                          f"and at most {MAX_CLASSES} classes, got C={c}, "
                          f"K={k}")

@@ -12,9 +12,10 @@ Exact reimplementation of the reference's ``src/postprocess.cpp``:
 
 :func:`postprocess_mask` is the readable per-image oracle over the plain
 ``cc.cc_label``.  :func:`postprocess_masks` is the batched serving path: two
-K3 calls per batch (``ops/cc_kernel.py``; the plain version on a CPU tensor)
-and exact per-root tables built by scatters, with no host synchronisation,
-so the engine keeps overlapping batches while it runs.
+K3 calls per batch (``ops/cc_kernel.cc_label_stats``; the plain version on a
+CPU tensor), each returning the labels and every component's area and
+border touch, then one gather per pixel; no scatter on the card and no host
+synchronisation, so the engine keeps overlapping batches while it runs.
 """
 
 from __future__ import annotations
@@ -58,29 +59,23 @@ def postprocess_mask(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(keep, FOREGROUND_VALUE, 0).to(torch.uint8)
 
 
-def _region_predicate(lbl: torch.Tensor, region: torch.Tensor, min_area: int,
-                      hole: bool) -> torch.Tensor:
-    """Per-pixel component predicate of a batch, from exact per-root tables.
+def _region_predicate(lbl: torch.Tensor, stats: torch.Tensor,
+                      region: torch.Tensor, min_area: int, hole: bool
+                      ) -> torch.Tensor:
+    """Per-pixel component predicate of a batch, from K3's per-root table.
 
-    ``lbl`` (N, H, W) holds roots in [0, H*W] (H*W off the region); image b's
-    root r has slot b*(H*W+1) + r.  Area is one scatter-add over the batch;
-    for holes, border touch is one scatter of the border pixels' roots.
+    ``lbl`` (N, H, W) holds roots in [0, H*W] (H*W off the region) and
+    ``stats`` each root's area and border touch, packed, with image b's root
+    r at slot b*(H*W+1) + r (``cc_kernel.cc_label_stats``).  One gather: a
+    hole has no touch bit (a non-negative slot) and an area below the
+    threshold; a kept component an area at or above it.
     """
     n, h, w = lbl.shape
-    size = h * w
-    offsets = torch.arange(n, device=lbl.device).reshape(n, 1, 1) * (size + 1)
-    slots = (lbl.long() + offsets).reshape(-1)
-    area = torch.zeros(n * (size + 1), dtype=torch.int32, device=lbl.device)
-    area.scatter_add_(0, slots, region.reshape(-1).to(torch.int32))
+    offsets = torch.arange(n, device=lbl.device).reshape(n, 1, 1) * (h * w + 1)
+    v = stats[(lbl.long() + offsets).reshape(-1)].reshape(n, h, w)
     if hole:
-        edges = torch.cat([lbl[:, 0], lbl[:, -1], lbl[:, :, 0], lbl[:, :, -1]],
-                          1).long() + offsets.reshape(n, 1)
-        touch = torch.zeros(n * (size + 1), dtype=torch.bool, device=lbl.device)
-        touch.index_fill_(0, edges.reshape(-1), True)
-        table = (area < min_area) & ~touch
-    else:
-        table = area >= min_area
-    return table[slots].reshape(n, h, w) & region
+        return (v >= 0) & (v < min_area) & region
+    return (cc_kernel.stats_area(v) >= min_area) & region
 
 
 def postprocess_masks(masks: torch.Tensor) -> torch.Tensor:
@@ -90,8 +85,10 @@ def postprocess_masks(masks: torch.Tensor) -> torch.Tensor:
     n, h, w = masks.shape
     min_area = min_area_threshold(h, w)
     inv = masks != FOREGROUND_VALUE
-    fill = _region_predicate(cc_kernel.cc_label(inv), inv, min_area, hole=True)
+    fill = _region_predicate(*cc_kernel.cc_label_stats(inv), inv, min_area,
+                             hole=True)
     masks = torch.where(fill, FOREGROUND_VALUE, masks)
     fg = morphology.open_(masks == FOREGROUND_VALUE, MORPH_KERNEL_SIZE)
-    keep = _region_predicate(cc_kernel.cc_label(fg), fg, min_area, hole=False)
+    keep = _region_predicate(*cc_kernel.cc_label_stats(fg), fg, min_area,
+                             hole=False)
     return torch.where(keep, FOREGROUND_VALUE, 0).to(torch.uint8)
