@@ -94,10 +94,47 @@ Phases, each of which fails the run (non-zero exit) on error:
    served by the engine; a float32 model refused by ``initialize_engine``
    with the reason in its log.
 
+12. Device preprocess (``preprocess_device``): ``normalize_u8`` and
+   ``resize_normalize_u8`` on the card bit-equal to the same functions on
+   the CPU, on seeded 768² and 2048 x 1536 u16 images and a constant one.
+   The conv kernel against its plain version at the flagship's last-level
+   conv1 (``LOGITS_CONVS``), which only the logits paths run in it, at the
+   batches they give it (``LOGITS_BATCHES``).
+13. TTA (``tta``), for slim4 and the flagship (seeded, head bias centred),
+   at 512²: ``process_single_image(tta=True)`` with host and with device
+   cleanup, counters set to 0 just before each call: all five artifacts,
+   byte-equal between the two cleanups; 8 x (6 K1 + 4 K2) launches per call
+   for slim4, 8 x (14 K1 + 4 K2) for the flagship (its last level runs in
+   the conv kernel: the ensemble needs logits), no K6, 2 K3 with device
+   cleanup.  The weight-space masks against the activation-space masks on
+   the card, every differing pixel within ``CPU_TIE_ULPS`` of the near-tie
+   rule on the averaged logits and absolute head sums
+   (``dec1.near_tie_sums``); the card's masks against the same path with
+   the UNet's convs swapped for the plain conv (``plain_convs``; on the CPU
+   for slim4, on the card for the flagship), >= ``CPU_AGREEMENT`` equal and
+   within the same rule; ms per slice of weight-space TTA (its first call,
+   which builds the 8 variants, apart), activation-space TTA and the plain
+   slice.
+14. Sliding windows (``tiled``), for both models:
+   ``process_single_image(window=512)`` on a 2048 x 1536 RAW (5 x 7
+   windows on a regular grid: the overlap-add blend), with ``overlap=128``
+   (an irregular grid: the padded-stack blend) and on a 40 x 10 RAW (10
+   rows, below the 16-pixel alignment: edge-padded, then cropped), each
+   with host and with device cleanup, counters set to 0 just before each
+   call: device-cleanup artifacts byte-equal to host-cleanup ones; per
+   image ceil(windows / 32) model passes times the convs per forward, no
+   K6, 2 K3 with device cleanup.  K3 bit for bit against its plain
+   version on the 2048 x 1536 masks and the cropped 40 x 10 masks; the
+   masks against the plain convs, as for TTA (slim4 on the CPU on a 1024 x
+   768 RAW, the flagship on the card on the 2048 x 1536 RAW, whose windows
+   pass at batches 32 and 3); ms per 2048 x 1536 image: the model, the
+   blend, the cleanup and the whole pipeline.
+
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -179,6 +216,24 @@ K6_CASES = [("random", (2, 512, 512, 64, 3, 1), False),
             ("small_8x6", (1, 8, 6, 64, 3, 10), False),
             ("small_c80_b3_k8", (3, 10, 20, 80, 8, 11), False),
             ("c16_b1_k1", (1, 30, 58, 16, 1, 12), False)]
+# Phases 12-14: the side of the RAW served with tta=True (resampled to
+# 512²); the (H, W) RAWs of window mode: 5 x 7 windows of 512 at the default
+# overlap, the same at IRREGULAR_OVERLAP (4 x 5, an irregular grid), slim4's
+# run against the CPU path (2 x 3 windows), and 10 rows below the 16-pixel
+# alignment of both models (edge-padded, then cropped).
+TTA_RAW = 768
+TILED_WINDOW = 512
+IRREGULAR_OVERLAP = 128
+TILED_RAW = (1536, 2048)
+TILED_CPU_RAW = (768, 1024)
+SMALL_RAW = (10, 40)
+# The flagship's ModelConfig() keywords (none: full width and depth).
+FLAGSHIP_KW: dict = {}
+# The flagship's last-level conv1 (H, W, C, D), which the logits paths run
+# in the conv kernel (the masks path runs it inside K6), at the batches
+# those paths give it: 1 (a TTA pass), 32 and 3 (TILED_RAW's 35 windows).
+LOGITS_CONVS = [(512, 512, 128, 64)]
+LOGITS_BATCHES = (1, 3, 32)
 
 
 def log(obj) -> None:
@@ -555,13 +610,33 @@ def centre_head_bias(torch, checkpoint, registry, native, raw_io, preprocess,
     checkpoint.save(path, params, cfg)
 
 
+def flagship_checkpoint(torch, np, tmp, dev):
+    """The flagship ``ModelConfig()`` in ``tmp``: seeded weights (seed 0),
+    the head bias centred on four synthetic 768² RAWs' logits.  Returns
+    (checkpoint path, the 768² RAW paths)."""
+    from unetseg_tpu_torch import checkpoint
+    from unetseg_tpu_torch.config import ModelConfig
+    from unetseg_tpu_torch.data import synth_slice
+    from unetseg_tpu_torch.io import native, raw as raw_io
+    from unetseg_tpu_torch.models import registry
+    from unetseg_tpu_torch.ops import preprocess
+
+    in_dir = os.path.join(tmp, "in")
+    os.makedirs(in_dir, exist_ok=True)
+    paths = write_raws(raw_io, synth_slice, np, in_dir, N_FLAGSHIP, 768)
+    ckpt = os.path.join(tmp, "models", "flagship.ckpt")
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    checkpoint.create(ckpt, ModelConfig(**FLAGSHIP_KW), seed=0)
+    centre_head_bias(torch, checkpoint, registry, native, raw_io, preprocess,
+                     ckpt, paths[:4], 768, dev)
+    return ckpt, paths
+
+
 def flagship(torch, np, F, dev, card):
     """Phases 8-10: the flagship's kernels and main path.  Returns the
     records of K6, K4 and K5 for the kernels line."""
     from unetseg_tpu_torch import checkpoint, engine, service
     from unetseg_tpu_torch.benchmarks import dec1_phases, exp_bw
-    from unetseg_tpu_torch.config import ModelConfig
-    from unetseg_tpu_torch.data import synth_slice
     from unetseg_tpu_torch.io import native, raw as raw_io
     from unetseg_tpu_torch.models import registry
     from unetseg_tpu_torch.ops import (cc_kernel, conv, dec1, halo_copy,
@@ -594,15 +669,8 @@ def flagship(torch, np, F, dev, card):
             raise AssertionError(f"{name} differs from the slice")
 
     with tempfile.TemporaryDirectory() as tmp:
-        in_dir = os.path.join(tmp, "in")
-        os.makedirs(in_dir)
         size = 768
-        paths = write_raws(raw_io, synth_slice, np, in_dir, N_FLAGSHIP, size)
-        ckpt = os.path.join(tmp, "models", "flagship.ckpt")
-        os.makedirs(os.path.dirname(ckpt))
-        checkpoint.create(ckpt, ModelConfig(), seed=0)
-        centre_head_bias(torch, checkpoint, registry, native, raw_io,
-                         preprocess, ckpt, paths[:4], size, dev)
+        ckpt, paths = flagship_checkpoint(torch, np, tmp, dev)
 
         # -- 9. flagship main path -------------------------------------------
         reset_launches()
@@ -828,10 +896,62 @@ def flagship(torch, np, F, dev, card):
 def near_tie_ulps(dec1, differ, c2, wh, bh):
     """The fewest bf16 ulps of the absolute head sum (``dec1.near_tie``'s
     measure) within which every differing pixel lies, or None past 64."""
+    return fewest_ulps(differ, lambda r: dec1.near_tie(c2, wh, bh, ulps=r))
+
+
+def fewest_ulps(differ, tie):
+    """The fewest ulps r in 1, 2, 4, ..., 64 with every differing pixel
+    inside ``tie(r)``, or None past 64."""
     for r in (1, 2, 4, 8, 16, 32, 64):
-        if not (differ & ~dec1.near_tie(c2, wh, bh, ulps=r)).any():
+        if not (differ & ~tie(r)).any():
             return r
     return None
+
+
+def head_sums(torch, model, x):
+    """(logits, absolute head sums), both (N, H, W, K) float32, of
+    ``UNet.forward`` on NHWC ``x``: the logits by the forward's own ops, the
+    sums |c2|.|wh| + |bh| (``dec1.near_tie``'s measure) in f32, both through
+    depth-to-space for a stem-s model."""
+    from unetseg_tpu_torch.models.unet import depth_to_space
+
+    c2 = model.decoder[-1](*model._trunk(x))
+    logits = c2 @ model.head_weight + model.head_bias
+    absum = (c2.float().abs() @ model.head_weight.float().abs()
+             + model.head_bias.float().abs())
+    if model.cfg.stem > 1:
+        logits = depth_to_space(logits, model.cfg.stem)
+        absum = depth_to_space(absum, model.cfg.stem)
+    return logits.float(), absum
+
+
+def tta_sums(torch, tta, models, x):
+    """Mean (logits, absolute head sums) of the 8-fold ensemble on one
+    NHWC slice ``x`` (1, H, W, 1): weight space when ``models`` holds the 8
+    variants, activation space (views of ``x`` through one model)
+    otherwise."""
+    lg = ab = 0
+    for k in range(tta.N_TRANSFORMS):
+        if isinstance(models, list):
+            l_k, a_k = head_sums(torch, models[k], x)
+        else:
+            l_k, a_k = head_sums(torch, models, tta.dihedral(x[0], k)[None])
+            l_k = tta.dihedral_inverse(l_k[0], k)[None]
+            a_k = tta.dihedral_inverse(a_k[0], k)[None]
+        lg, ab = lg + l_k, ab + a_k
+    return lg / tta.N_TRANSFORMS, ab / tta.N_TRANSFORMS
+
+
+def tiled_sums(torch, tiles, model, u8, window):
+    """Blended (logits, absolute head sums) (H, W, K) of sliding windows of
+    ``window`` at the default overlap over ``u8`` (H, W), by chunks."""
+    stride = window - window // 2
+    h, w = u8.shape
+    x = tiles.extract_windows(u8, window, stride)[..., None].float() / 255.0
+    parts = [head_sums(torch, model, x[i:i + tiles.MODEL_CHUNK])
+             for i in range(0, x.shape[0], tiles.MODEL_CHUNK)]
+    return tuple(tiles.blend_windows(torch.cat(p), h, w, window, stride)
+                 for p in zip(*parts))
 
 
 def check_config(torch, np, name, cfg, x, dev, card, seed=7):
@@ -944,6 +1064,380 @@ def configs(torch, np, dev, card):
         if not refused or not any("ROADMAP.md" in r for r in reason):
             raise AssertionError(f"float32 on CUDA: refused {refused}, "
                                  f"reason {reason}")
+
+
+def reset_all_launches():
+    from unetseg_tpu_torch.ops import cc_kernel, conv, dec1
+
+    for mod in (conv, cc_kernel, dec1):
+        mod.reset_launches()
+
+
+def all_launches() -> dict:
+    from unetseg_tpu_torch.ops import cc_kernel, conv, dec1
+
+    return {**conv.LAUNCHES, **dec1.LAUNCHES,
+            "cc_label": sum(cc_kernel.LAUNCHES.values())}
+
+
+@contextlib.contextmanager
+def plain_convs():
+    """The UNet's 3x3 convs through the conv's plain version (a float32
+    conv, one cast) on any device: the reference that the TTA and window
+    paths are held against, on the CPU for slim4 and on the card for the
+    flagship."""
+    from unetseg_tpu_torch.models import unet
+    from unetseg_tpu_torch.ops import conv
+
+    saved = unet.conv3x3_bias_act
+    unet.conv3x3_bias_act = conv.conv3x3_bias_act_plain
+    try:
+        yield
+    finally:
+        unet.conv3x3_bias_act = saved
+
+
+def convs_per_forward(model) -> dict:
+    """Conv kernel launches of one ``UNet.forward`` by variant: every 3x3
+    conv, the last level's included (the logits path takes no K6)."""
+    from unetseg_tpu_torch.models.unet import Conv3x3
+
+    out = {"conv3x3_bias_act": 0, "conv3x3_bias_act_small_c": 0}
+    for m in model.modules():
+        if isinstance(m, Conv3x3):
+            out[variant(m.weight.shape[2])] += 1
+    return out
+
+
+def check_mode_launches(what, launches, passes, per_forward, device_post):
+    """A served image's launches: ``passes`` forwards of ``per_forward``
+    convs, no K6, and the device cleanup's 2 K3 calls when it runs."""
+    want = {k: v * passes for k, v in per_forward.items()}
+    want.update(dec1_fused=0, cc_label=2 if device_post else 0)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+
+
+def serve_one(engine, ckpt, tmp, tag, raw_path, w, h, device_post, **kw):
+    """``process_single_image(raw_path, **kw)`` on a fresh engine (host or
+    device cleanup), with the counters set to 0 just before it.  Returns
+    (out dir, its artifact names, launches, model passes, wall s)."""
+    if not engine.initialize_engine(ckpt, log_dir=os.path.join(tmp, "log"),
+                                    device_postprocess=device_post):
+        raise AssertionError(f"{tag}: initialize_engine returned False")
+    eng = engine.get_engine()
+    out = os.path.join(tmp, f"{tag}_{'device' if device_post else 'host'}")
+    reset_all_launches()
+    before = eng.forwards
+    t0 = time.perf_counter()
+    if not engine.process_single_image(raw_path, w, h, out, **kw):
+        raise AssertionError(f"{tag}: process_single_image({kw}) failed")
+    wall = time.perf_counter() - t0
+    launches, passes = all_launches(), eng.forwards - before
+    engine.cleanup_resources()
+    return out, sorted(os.listdir(out)), launches, passes, wall
+
+
+def preprocess_device(torch, np, dev, card):
+    """Phase 12: the device preprocess on the card, bit-equal to the same
+    functions on the CPU."""
+    from unetseg_tpu_torch.data import synth_slice
+    from unetseg_tpu_torch.ops import preprocess
+
+    rng = np.random.default_rng(41)
+    h, w = TILED_RAW
+    raws = {"random_768": rng.integers(0, 65536, (768, 768), np.uint16),
+            f"synth_{h}x{w}": synth_slice(rng, max(h, w))[0][:h, :w],
+            "constant_768": np.full((768, 768), 1234, np.uint16)}
+    for name, raw in raws.items():
+        host = torch.from_numpy(raw)
+        on_card = host.to(dev)
+        for fn in (preprocess.normalize_u8, preprocess.resize_normalize_u8):
+            got = fn(on_card).cpu()
+            want = fn(host)
+            differing = int((got != want).sum()) if got.shape == want.shape \
+                else -1
+            log({"phase": "preprocess_device", "image": name,
+                 "fn": fn.__name__, "shape": list(raw.shape),
+                 "out_shape": list(got.shape), "differing": differing,
+                 "ms": time_ms(torch, lambda: fn(on_card), 10), **card})
+            if differing or got.dtype != torch.uint8:
+                raise AssertionError(f"{fn.__name__} on {name}: the card "
+                                     f"differs from the CPU ({differing})")
+
+
+def tta_phase(torch, np, name, ckpt, raw_path, tmp, dev, card, ref_dev):
+    """Phase 13 for one model: ``process_single_image(tta=True)`` with host
+    and with device cleanup; weight-space against activation-space masks on
+    the card; the card against the plain convs on ``ref_dev``; times (the
+    first call's with the 8 variants' build)."""
+    from unetseg_tpu_torch import checkpoint, engine
+    from unetseg_tpu_torch.io import native, raw as raw_io
+    from unetseg_tpu_torch.ops import dec1, preprocess
+    from unetseg_tpu_torch.ops.decode import decode_mask
+    from unetseg_tpu_torch.parallel import tta
+
+    params, cfg = checkpoint.load(ckpt)
+    eng = engine.InferenceEngine(params, cfg, dev)
+    per_forward = convs_per_forward(eng.model)
+    served = {}
+    for device_post in (False, True):
+        out, names, launches, passes, wall = serve_one(
+            engine, ckpt, tmp, f"{name}_tta", raw_path, TTA_RAW, TTA_RAW,
+            device_post, tta=True)
+        log({"phase": "tta", "model": name,
+             "cleanup": "device" if device_post else "host",
+             "passes": passes, "launches": launches,
+             "convs_per_forward": per_forward, "artifacts": names,
+             "process_single_image_s": wall, **card})
+        if passes != tta.N_TRANSFORMS:
+            raise AssertionError(f"{name} tta: {passes} passes, want 8")
+        check_mode_launches(f"{name} tta", launches, passes, per_forward,
+                            device_post)
+        check_artifacts(out, os.path.basename(raw_path)[:-len(".raw")])
+        served[device_post] = (out, names)
+    if served[False][1] != served[True][1]:
+        raise AssertionError(f"{name} tta: host and device cleanup wrote "
+                             f"different artifact sets")
+    compare_dirs(served[False][0], served[True][0], served[False][1])
+
+    u8 = native.preprocess_u8(np.asarray(raw_io.read_raw(
+        raw_path, TTA_RAW, TTA_RAW)), cfg.image_size)
+    u8_d = torch.from_numpy(u8).to(dev)
+    variants = tta.weight_variants(params, cfg, dev)
+    act_pipe = tta.make_tta_pipeline(eng.model, device_postprocess=False)
+    x = preprocess.model_input_from_u8(u8_d)[None, ..., None]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ws = eng.infer_tta(u8).cpu()
+    first_call_ms = (time.perf_counter() - t0) * 1e3
+    with torch.inference_mode():
+        act = act_pipe(u8_d).cpu()
+        lg, ab = tta_sums(torch, tta, variants, x)
+    lg, ab = lg[0].cpu(), ab[0].cpu()
+    if not torch.equal(decode_mask(lg, cfg.num_classes), ws):
+        raise AssertionError(f"{name} tta: the engine's masks are not the "
+                             f"argmax of the variants' mean logits")
+    differ = ws != act
+    ulps = fewest_ulps(differ, lambda r: dec1.near_tie_sums(lg, ab, r))
+    record = {"phase": "tta_forms", "model": name,
+              "ws_vs_act_differing": int(differ.sum()),
+              "ws_vs_act_within_ulps": ulps,
+              "class_share": (torch.bincount(ws.flatten().long(),
+                                             minlength=cfg.num_classes)
+                              / ws.numel()).tolist()}
+    if ulps is None or ulps > CPU_TIE_ULPS:
+        log(record)
+        raise AssertionError(f"{name} tta: weight- and activation-space "
+                             f"masks part outside {CPU_TIE_ULPS} ulps")
+    ref = engine.InferenceEngine(params, cfg, ref_dev)
+    with plain_convs(), torch.inference_mode():
+        ref_masks = ref.infer_tta(u8).cpu()
+        lg_r, ab_r = tta_sums(torch, tta, tta.weight_variants(
+            params, cfg, ref_dev), x.to(ref_dev))
+    differ = ws != ref_masks
+    agree = 1 - differ.float().mean().item()
+    ref_ulps = fewest_ulps(differ, lambda r: dec1.near_tie_sums(
+        lg_r[0].cpu(), ab_r[0].cpu(), r))
+    record.update(reference=f"plain convs on {ref_dev}",
+                  reference_mask_agreement=agree,
+                  reference_differing_within_ulps=ref_ulps)
+    log(record)
+    if agree < CPU_AGREEMENT or ref_ulps is None or ref_ulps > CPU_TIE_ULPS:
+        raise AssertionError(f"{name} tta: card vs plain convs on {ref_dev} "
+                             f"agree on {agree}, within {ref_ulps} ulps")
+    del ref, lg_r, ab_r
+
+    u8_1 = u8_d[None]
+    with torch.inference_mode():
+        times = {"weight_space_ms": time_ms(torch, lambda: eng._tta(u8_1), 10),
+                 "activation_space_ms": time_ms(torch, lambda: act_pipe(u8_d),
+                                                10),
+                 "plain_slice_ms": time_ms(torch, lambda: eng._pipeline(u8_1),
+                                           10)}
+    log({"phase": "tta_time", "model": name, "shape": list(u8.shape),
+         "weight_space_first_call_ms": first_call_ms, **times, **card})
+    del eng, variants, act_pipe
+    torch.cuda.empty_cache()
+
+
+def tiled_phase(torch, np, name, ckpt, tmp, dev, card, ref_dev):
+    """Phase 14 for one model: ``process_single_image(window=...)`` on the
+    regular grid, the irregular one and the padded image, with host and
+    with device cleanup; K3 on the native-size and cropped masks; the card
+    against the plain convs on ``ref_dev`` (on the card: TILED_RAW, whose
+    windows pass at batches 32 and 3); times."""
+    from unetseg_tpu_torch import checkpoint, engine
+    from unetseg_tpu_torch.data import synth_slice
+    from unetseg_tpu_torch.io import native, raw as raw_io
+    from unetseg_tpu_torch.ops import (cc, cc_kernel, dec1, morphology,
+                                       postprocess, preprocess)
+    from unetseg_tpu_torch.ops.decode import decode_mask
+    from unetseg_tpu_torch.parallel import tiles
+
+    params, cfg = checkpoint.load(ckpt)
+    eng = engine.InferenceEngine(params, cfg, dev)
+    per_forward = convs_per_forward(eng.model)
+    rng = np.random.default_rng(43)
+    raws = {}
+    ref_hw = TILED_CPU_RAW if str(ref_dev) == "cpu" else TILED_RAW
+    for tag, (h, w) in (("big", TILED_RAW), ("small", SMALL_RAW),
+                        ("ref", ref_hw)):
+        raws[tag] = (os.path.join(tmp, f"{name}_{tag}.raw"), h, w)
+        raw_io.write_raw(raws[tag][0],
+                         synth_slice(rng, max(h, w))[0][:h, :w])
+    u8s = {tag: preprocess.normalize_u8(torch.from_numpy(np.asarray(
+        raw_io.read_raw(p, w, h))).to(dev)) for tag, (p, h, w) in raws.items()}
+
+    def plan(tag, overlap):
+        """(window, stride, windows) of ``infer_tiled`` on ``raws[tag]``."""
+        h, w = u8s[tag].shape
+        window, ov = eng.tile_window(h, w, TILED_WINDOW, overlap)
+        padded = tiles._pad_to_window(u8s[tag], window)[0]
+        return window, window - ov, tiles.extract_windows(
+            padded, window, window - ov).shape[0]
+
+    cases = (("regular", "big", None), ("irregular", "big", IRREGULAR_OVERLAP),
+             ("padded", "small", None))
+    for case, tag, overlap in cases:
+        path, h, w = raws[tag]
+        window, stride, n_windows = plan(tag, overlap)
+        served = {}
+        for device_post in (False, True):
+            out, names, launches, passes, wall = serve_one(
+                engine, ckpt, tmp, f"{name}_{case}", path, w, h, device_post,
+                window=TILED_WINDOW, overlap=overlap)
+            log({"phase": "tiled", "model": name, "case": case,
+                 "image": [h, w], "window": window, "stride": stride,
+                 "windows": n_windows,
+                 "cleanup": "device" if device_post else "host",
+                 "passes": passes, "launches": launches, "artifacts": names,
+                 "process_single_image_s": wall, **card})
+            if passes != -(-n_windows // tiles.MODEL_CHUNK):
+                raise AssertionError(f"{name} {case}: {passes} passes for "
+                                     f"{n_windows} windows")
+            check_mode_launches(f"{name} {case}", launches, passes,
+                                per_forward, device_post)
+            base = os.path.basename(path)[:-len(".raw")]
+            with open(os.path.join(out, base + "_original_sizes.json")) as f:
+                sizes = json.load(f)[os.path.basename(path)]
+            if (sizes["scaled_width"], sizes["scaled_height"]) != (w, h) or \
+                    len(names) < 3:
+                raise AssertionError(f"{name} {case}: {names}, sizes {sizes}")
+            served[device_post] = (out, names)
+        if served[False][1] != served[True][1]:
+            raise AssertionError(f"{name} {case}: host and device cleanup "
+                                 f"wrote different artifact sets")
+        compare_dirs(served[False][0], served[True][0], served[False][1])
+
+    # K3 on what window mode feeds it: the native-size and cropped masks.
+    cc_err = 0
+    for tag in ("big", "small"):
+        masks = eng.infer_tiled(u8s[tag], TILED_WINDOW)[None]
+        inv = masks != postprocess.FOREGROUND_VALUE
+        opened = morphology.open_(~inv, postprocess.MORPH_KERNEL_SIZE)
+        for kind, fg, seed in (("inverse", inv, 360), ("opened_fg", opened,
+                                                       361)):
+            cc_err = max(cc_err, check_cc(torch, cc, cc_kernel,
+                                          f"{name}_tiled_{tag}_{kind}", fg,
+                                          seed))
+    path, h, w = raws["ref"]
+    got = eng.infer_tiled(u8s["ref"], TILED_WINDOW).cpu()
+    u8_r = u8s["ref"].to(ref_dev)
+    ref = engine.InferenceEngine(params, cfg, ref_dev)
+    with plain_convs():
+        want = ref.infer_tiled(u8_r, TILED_WINDOW).cpu()
+        with torch.inference_mode():
+            lg, ab = tiled_sums(torch, tiles, ref.model, u8_r, TILED_WINDOW)
+    lg, ab = lg.cpu(), ab.cpu()
+    if not torch.equal(decode_mask(lg, cfg.num_classes), want):
+        raise AssertionError(f"{name} tiled: the reference masks are not the "
+                             f"argmax of the blended logits")
+    differ = got != want
+    agree = 1 - differ.float().mean().item()
+    ulps = fewest_ulps(differ, lambda r: dec1.near_tie_sums(lg, ab, r))
+    log({"phase": "tiled_reference", "model": name, "image": [h, w],
+         "reference": f"plain convs on {ref_dev}", "passes": ref.forwards,
+         "reference_mask_agreement": agree, "differing_within_ulps": ulps})
+    if agree < CPU_AGREEMENT or ulps is None or ulps > CPU_TIE_ULPS:
+        raise AssertionError(f"{name} tiled: card vs plain convs on {ref_dev} "
+                             f"agree on {agree}, within {ulps} ulps")
+    del ref, lg, ab
+
+    # Where a 2048 x 1536 image's time goes, by CUDA events.
+    path, h, w = raws["big"]
+    raw_d = torch.from_numpy(np.asarray(raw_io.read_raw(path, w, h))).to(dev)
+    u8 = u8s["big"]
+    eng_dev = engine.InferenceEngine(params, cfg, dev, device_postprocess=True)
+    window, stride, n_windows = plan("big", None)
+    _, i_stride, i_windows = plan("big", IRREGULAR_OVERLAP)
+    with torch.inference_mode():
+        lt = tiles._window_logits(eng.model, u8, window, stride)
+        lt_i = tiles._window_logits(eng.model, u8, window, i_stride)
+        logits = tiles.blend_windows(lt, h, w, window, stride)
+        mask = decode_mask(logits, cfg.num_classes)
+        times = {
+            "preprocess_ms": time_ms(torch, lambda: preprocess.normalize_u8(
+                raw_d), 5),
+            "model_ms": time_ms(torch, lambda: tiles._window_logits(
+                eng.model, u8, window, stride), 3),
+            "blend_ms": time_ms(torch, lambda: tiles.blend_windows(
+                lt, h, w, window, stride), 5),
+            "irregular_blend_ms": time_ms(torch, lambda: tiles.blend_windows(
+                lt_i, h, w, window, i_stride), 5),
+            "argmax_ms": time_ms(torch, lambda: decode_mask(
+                logits, cfg.num_classes), 5),
+            "device_cleanup_ms": time_ms(
+                torch, lambda: postprocess.postprocess_masks(mask[None]), 5),
+            "pipeline_host_cleanup_ms": time_ms(
+                torch, lambda: eng.infer_tiled(u8, TILED_WINDOW), 3),
+            "pipeline_device_cleanup_ms": time_ms(
+                torch, lambda: eng_dev.infer_tiled(u8, TILED_WINDOW), 3)}
+    mask_np = mask[None].cpu().numpy()
+    t0 = time.perf_counter()
+    native.postprocess_batch(mask_np)
+    times["host_cpp_cleanup_ms"] = (time.perf_counter() - t0) * 1e3
+    log({"phase": "tiled_time", "model": name, "image": [h, w],
+         "window": window, "windows": n_windows, "stride": stride,
+         "irregular_windows": i_windows, "irregular_stride": i_stride,
+         "passes": -(-n_windows // tiles.MODEL_CHUNK), **times, **card})
+    del eng, eng_dev, lt, lt_i, logits
+    torch.cuda.empty_cache()
+    return cc_err
+
+
+def tta_and_windows(torch, np, dev, card):
+    """Phases 12-14: the device preprocess, the conv kernel at the shapes
+    only the logits paths give it, TTA and sliding windows, for slim4 and
+    the flagship.  Returns {kernel: worst error} (K3's is 0, or the run
+    fails)."""
+    from unetseg_tpu_torch.data import synth_slice
+    from unetseg_tpu_torch.io import raw as raw_io
+    from unetseg_tpu_torch.ops import conv
+
+    preprocess_device(torch, np, dev, card)
+    worst = {}
+    for batch in LOGITS_BATCHES:
+        for v, err in check_parity(torch, conv, dev, LOGITS_CONVS,
+                                   batch).items():
+            worst[v] = max(worst.get(v, 0.0), err)
+    log({"phase": "logits_conv_parity", "shapes": LOGITS_CONVS,
+         "batches": list(LOGITS_BATCHES), "max_abs_err": worst})
+    torch.cuda.empty_cache()
+    cc_err = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        flag_dir = os.path.join(tmp, "flagship")
+        flag_ckpt, _ = flagship_checkpoint(torch, np, flag_dir, dev)
+        raw_path = os.path.join(tmp, "tta_slice.raw")
+        raw_io.write_raw(raw_path, synth_slice(np.random.default_rng(42),
+                                               TTA_RAW)[0])
+        for name, ckpt, ref_dev in (("slim4", CKPT, "cpu"),
+                                    ("flagship", flag_ckpt, dev)):
+            tta_phase(torch, np, name, ckpt, raw_path, tmp, dev, card,
+                      ref_dev)
+            cc_err = max(cc_err, tiled_phase(torch, np, name, ckpt, tmp, dev,
+                                             card, ref_dev))
+    return {**worst, "cc_label": cc_err}
 
 
 def main() -> int:
@@ -1315,6 +1809,11 @@ def main() -> int:
     kernels += flagship(torch, np, F, dev, card)
     torch.cuda.empty_cache()
     configs(torch, np, dev, card)
+    torch.cuda.empty_cache()
+    for name, err in tta_and_windows(torch, np, dev, card).items():
+        for k in kernels:
+            if k["name"] == name:
+                k["max_abs_err"] = max(k["max_abs_err"], err)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

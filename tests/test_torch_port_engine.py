@@ -10,6 +10,7 @@ cleanup runs in the pipeline on both sides.
 """
 
 import dataclasses
+import json
 import os
 
 import cv2
@@ -124,17 +125,25 @@ def test_entry_points_default_to_cuda_and_fail_without_it(ckpt, tmp_path):
 
 
 def test_unported_modes_raise(ckpt, tmp_path):
+    """Per-class JSON, the cascade and other archs still raise with their
+    ROADMAP item; TTA and sliding windows now serve."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.initialize_engine(ckpt, device="cpu", cascade_ckpt=ckpt)
-    for kw in ({"tta": True}, {"window": 256}, {"per_class": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine.process_single_image("x.raw", W, H, str(tmp_path), **kw)
+    with pytest.raises(NotImplementedError, match="P6"):
+        engine.process_single_image("x.raw", W, H, str(tmp_path),
+                                    per_class=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.process_batch([], W, H, [], per_class=True)
     params, cfg = checkpoint.load(ckpt)
     with pytest.raises(NotImplementedError, match="P10"):
         engine.InferenceEngine(params, dataclasses.replace(cfg, arch="unetpp"),
                                device="cpu")
+    eng = engine.InferenceEngine(params, cfg, device="cpu")
+    raw = _write_raws(tmp_path, 1)[0]
+    for i, kw in enumerate(({"tta": True}, {"window": 256})):
+        out = str(tmp_path / f"mode{i}")
+        assert engine.process_single_image(raw, W, H, out, eng=eng, **kw)
+        assert len(_files(out)) == 5, kw
 
 
 @pytest.fixture()
@@ -226,3 +235,57 @@ def test_eng_emitter_and_overlap_parameters(ckpt, tmp_path):
                 open(os.path.join(outs["cv2"], f), "rb") as b:
             assert a.read() == b.read(), f
     assert engine.get_engine() is None
+
+
+# (kwargs, W, H, model passes): TTA, 8 passes; windows on the default
+# (regular) grid, 2 x 3 windows in one pass; overlap 16, an irregular 2 x 2
+# grid; a 3-row image, below the UNet's alignment (4 = stem * 2**depth),
+# edge-padded to one row of 44 4 x 4 windows (two passes of 32) and cropped
+# back.
+MODES = {"tta": ({"tta": True}, W, H, 8),
+         "window": ({"window": 64}, W, H, 1),
+         "window_overlap16": ({"window": 64, "overlap": 16}, W, H, 1),
+         "window_padded": ({"window": 64}, 90, 3, 2)}
+
+
+@pytest.mark.parametrize("device_post", [False, True], ids=["host", "device"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_tta_and_window_modes_match_jax(ckpt, tmp_path, mode, device_post):
+    """``process_single_image(tta=True)`` and ``(window=..., overlap=...)``
+    against the JAX engine, with host and with device cleanup: the same
+    masks, so JSONs byte-equal and PNGs pixel-equal; window mode writes at
+    the image's own size."""
+    kw, w, h, passes = MODES[mode]
+    rng = np.random.default_rng(3)
+    raw = str(tmp_path / "img.raw")
+    raw_io.write_raw(raw, synth_slice(rng, 112)[0][:h, :w])
+    assert jax_engine.initialize_engine(ckpt, log_dir=str(tmp_path / "jlog"),
+                                        device_postprocess=device_post)
+    assert engine.initialize_engine(ckpt, log_dir=str(tmp_path / "plog"),
+                                    device="cpu",
+                                    device_postprocess=device_post)
+    try:
+        jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
+        assert jax_engine.process_single_image(raw, w, h, jdir, **kw)
+        assert engine.process_single_image(raw, w, h, pdir, **kw)
+        eng = engine.get_engine()
+        assert eng.forwards == passes + 1  # and the warm-up
+    finally:
+        jax_engine.cleanup_resources()
+        engine.cleanup_resources()
+    names = _files(jdir)
+    assert names == _files(pdir) and len(names) in (3, 5), names
+    for f in names:
+        a, b = os.path.join(jdir, f), os.path.join(pdir, f)
+        if f.endswith(".json"):
+            assert open(a, "rb").read() == open(b, "rb").read(), f
+        else:
+            np.testing.assert_array_equal(
+                cv2.imread(b, cv2.IMREAD_UNCHANGED),
+                cv2.imread(a, cv2.IMREAD_UNCHANGED), err_msg=f)
+    sizes = json.load(open(os.path.join(pdir, "img_original_sizes.json")))
+    scaled = (w, h) if "window" in kw else (64, 64)
+    assert (sizes["img.raw"]["scaled_width"],
+            sizes["img.raw"]["scaled_height"]) == scaled
+    mask = cv2.imread(os.path.join(pdir, "img_mask.png"), cv2.IMREAD_UNCHANGED)
+    assert mask.shape == scaled[::-1]

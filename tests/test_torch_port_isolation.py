@@ -20,7 +20,9 @@ print(len(names), bad, *names)
 """
 #: Modules of the later slices, named so the walk cannot miss them.
 NEW_MODULES = ("unetseg_tpu_torch.ops.dec1", "unetseg_tpu_torch.ops.halo_copy",
-               "unetseg_tpu_torch.benchmarks.exp_bw")
+               "unetseg_tpu_torch.benchmarks.exp_bw",
+               "unetseg_tpu_torch.parallel", "unetseg_tpu_torch.parallel.tiles",
+               "unetseg_tpu_torch.parallel.tta")
 
 
 def test_port_imports_no_jax():
@@ -29,7 +31,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n, bad, *names = proc.stdout.strip().split(" ")
-    assert int(n) >= 29 and bad == "[]", proc.stdout
+    assert int(n) >= 32 and bad == "[]", proc.stdout
     assert set(NEW_MODULES) <= set(names), proc.stdout
 
 
@@ -43,10 +45,12 @@ def test_port_sources_name_no_jax():
     for dirpath, _, files in os.walk(root):
         sources += [os.path.join(dirpath, f) for f in files
                     if f.endswith(".py")]
-    assert len(sources) >= 30
+    assert len(sources) >= 33
     assert {os.path.join(root, "ops", "dec1.py"),
             os.path.join(root, "ops", "halo_copy.py"),
-            os.path.join(root, "benchmarks", "exp_bw.py")} <= set(sources)
+            os.path.join(root, "benchmarks", "exp_bw.py"),
+            os.path.join(root, "parallel", "tiles.py"),
+            os.path.join(root, "parallel", "tta.py")} <= set(sources)
     for path in sources:
         src = open(path).read()
         for word in ("import jax", "from jax", "import flax",

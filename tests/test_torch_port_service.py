@@ -206,19 +206,26 @@ def test_service_rejects_dropped_and_unported_fields(svc):
     assert not r["ok"] and "timeout_s" in r["error"]
     r = _req(addr, _process(tmp_path, None, "o", emitter="pil"))
     assert not r["ok"] and "emitter" in r["error"]
-    for field, item in (({"tta": True}, "P9"), ({"window": 64}, "P9"),
-                        ({"per_class": True}, "P6")):
-        r = _req(addr, _process(tmp_path, "s0.raw", "o", **field))
-        assert not r["ok"] and item in r["error"], (field, r)
+    r = _req(addr, _process(tmp_path, "s0.raw", "o", per_class=True))
+    assert not r["ok"] and "P6" in r["error"], r
     r = _req(addr, _process(tmp_path, None, "o", per_class=True))
     assert not r["ok"] and "P6" in r["error"]
+    # TTA and sliding windows serve a file, and a directory request with
+    # them is refused.
+    for i, field in enumerate(({"tta": True}, {"window": 64},
+                               {"window": 64, "overlap": 0})):
+        r = _req(addr, _process(tmp_path, "s0.raw", f"mode{i}", **field))
+        assert r["ok"], (field, r)
+        assert "s0_mask.png" in os.listdir(tmp_path / f"mode{i}"), field
+        r = _req(addr, _process(tmp_path, None, "o", **field))
+        assert not r["ok"] and "directory" in r["error"], (field, r)
 
     r = _req(addr, _process(tmp_path, None, "o2", tier="json",
                             emitter="native"))
     assert r["ok"]
     assert sorted(os.listdir(tmp_path / "o2")) == [
         "s0.json", "s0_original_sizes.json"]
-    with pytest.raises(NotImplementedError, match="P9"):
+    with pytest.raises(NotImplementedError, match="P9b"):
         service.SegmentationService(port=0, partitions=2, device="cpu")
 
 
@@ -265,7 +272,7 @@ def test_cli_serve_arg_parsing(monkeypatch, capsys):
     assert (calls["host"], calls["port"]) == ("::1", 9002)
 
     calls.clear()
-    for argv, msg in ((["--serve", "9001", "--partitions", "4"], "P9"),
+    for argv, msg in ((["--serve", "9001", "--partitions", "4"], "P9b"),
                       (["--serve", "host:port"], "invalid --serve"),
                       (["--serve", "::1:9000"], "brackets"),
                       (["--serve", "9001", "--timeout"], "--timeout")):
@@ -284,8 +291,12 @@ def test_cli_repl(tmp_path, capsys):
         f"process {raw} 90 70 {out}",                 # before init
         f"init {cache} --cascade {cache}",            # not ported: P8
         f"init {cache}",
-        f"process --tta {raw} 90 70 {out}",           # not ported: P9
-        f"process --window 64 {raw} 90 70 {out}",     # not ported: P9
+        f"process --tta {raw} 90 70 {tmp_path / 'tta_out'}",
+        f"process --window 64 --overlap 16 {raw} 90 70 "
+        f"{tmp_path / 'window_out'}",
+        f"process --tta {tmp_path / 'data'} 90 70 {out}",     # directory
+        f"process --window 64 {tmp_path / 'data'} 90 70 {out}",
+        f"process --window x {raw} 90 70 {out}",      # not an integer
         f"process --per-class {raw} 90 70 {out}",     # not ported: P6
         f"process --batched {raw} 90 70 {out}",       # directory flag
         f"process {raw} 90 70 {out}",
@@ -300,9 +311,15 @@ def test_cli_repl(tmp_path, capsys):
     assert "Unknown command: bogus" in captured.err
     assert "Error: Engine not initialized" in captured.err
     assert "Engine initialized successfully" in captured.out
-    for item in ("--cascade", "--tta", "--window", "--per-class"):
+    for item in ("--cascade", "--per-class"):
         assert item in captured.err, item
-    assert captured.err.count("ROADMAP.md") == 4
+    assert captured.err.count("ROADMAP.md") == 2
+    assert captured.err.count("not supported for directory inputs") == 2
+    assert "['--tta']" in captured.err and "['--window']" in captured.err
+    assert "--window requires an integer" in captured.err
+    assert captured.out.count("Processing completed") == 3
+    for d in ("tta_out", "window_out"):
+        assert (tmp_path / d / "s0_mask.png").exists(), d
     assert "apply to directory inputs only" in captured.err
     assert "Processing completed" in captured.out
     assert "Success: 2 files" in captured.out

@@ -3,16 +3,19 @@
 The reference's grammar (``src/main.cpp:51-196``):
 
     init <engine_cache_path>
-    process [-r] [--batched] [--fast-emit] [--tier T] <input> <width> <height> [output_dir]
+    process [-r] [--batched] [--fast-emit] [--tier T] [--tta] [--window N]
+            [--overlap N] <input> <width> <height> [output_dir]
     exit
     help
 
 Directory inputs are walked (recursively with -r), mirroring relative paths
 into the output directory; per-file failures do not abort the batch.
-``--batched`` sends a directory through ``engine.process_batch``.  Flags of
-modes not ported yet (``--tta``, ``--window``, ``--per-class``,
-``--cascade*``, ``--partitions N`` > 1) print an error naming their
-ROADMAP.md item; they are never dropped silently.
+``--batched`` sends a directory through ``engine.process_batch``.  A file
+input takes ``--tta`` (the 8-fold dihedral ensemble) and ``--window N``
+(sliding windows at native resolution, ``--overlap N`` between them); a
+directory input with any of the three is an error.  Flags of modes not
+ported yet (``--per-class``, ``--cascade*``, ``--partitions N`` > 1) print
+an error naming their ROADMAP.md item; no flag is dropped silently.
 
 ``python -m unetseg_tpu_torch --serve [HOST:]PORT [--device-post]
 [--timeout S]`` starts the TCP service instead.  ``--device DEV`` (default
@@ -30,7 +33,7 @@ from unetseg_tpu_torch import engine
 from unetseg_tpu_torch.io import raw as raw_io
 
 # Flags of unported modes -> the ROADMAP.md item that carries them.
-_UNPORTED_PROCESS = {"--tta": "P9", "--window": "P9", "--per-class": "P6"}
+_UNPORTED_PROCESS = {"--per-class": "P6"}
 _UNPORTED_INIT = ("--cascade", "--cascade-disagree", "--cascade-both")
 
 
@@ -45,6 +48,9 @@ def print_usage() -> None:
     print("  --batched                     - Use batched inference for directories")
     print("  --fast-emit                   - Batched C++ artifact emission (with --batched)")
     print("  --tier full|mask_json|json    - Artifact set for --batched (default full)")
+    print("  --tta                         - 8-fold dihedral TTA ensemble (file input)")
+    print("  --window N                    - Sliding windows of N px at native resolution (file input)")
+    print("  --overlap N                   - Window overlap (default N/2 of the window)")
     print("  <input>                       - Path to image file or directory")
 
 
@@ -109,8 +115,8 @@ def _init(parts: List[str], device: str, device_postprocess: bool) -> bool:
 
 
 def _process(args: List[str]) -> None:
-    recursive = batched = fast_emit = tier_explicit = False
-    overlap = False
+    recursive = batched = fast_emit = tier_explicit = tta = False
+    window = overlap = None
     tier = "full"
     while args and args[0].startswith("-"):
         flag = args.pop(0)
@@ -123,16 +129,21 @@ def _process(args: List[str]) -> None:
             batched = True
         elif flag == "--fast-emit":
             fast_emit = True
+        elif flag == "--tta":
+            tta = True
         elif flag == "--tier" and args:
             tier, tier_explicit = args.pop(0), True
-        elif flag == "--overlap" and args:
-            # a sliding-window setting: ignored without --window (not
-            # ported), as in the JAX engine
-            if not args.pop(0).isdigit():
-                print("Error: --overlap requires an integer", file=sys.stderr)
+        elif flag in ("--window", "--overlap") and args:
+            try:
+                value = int(args.pop(0))
+            except ValueError:
+                print(f"Error: {flag} requires an integer", file=sys.stderr)
                 return
-            overlap = True
-        elif flag in ("--tier", "--overlap"):
+            if flag == "--window":
+                window = value
+            else:  # ignored without --window, as in the JAX engine
+                overlap = value
+        elif flag in ("--tier", "--window", "--overlap"):
             print(f"Error: {flag} requires a value", file=sys.stderr)
             return
         else:
@@ -155,8 +166,11 @@ def _process(args: List[str]) -> None:
     os.makedirs(output_dir or ".", exist_ok=True)
 
     if os.path.isdir(input_path):
-        if overlap:
-            print("Error: ['--overlap'] not supported for directory inputs "
+        dropped = [n for n, v in (("--tta", tta), ("--window", window),
+                                  ("--overlap", overlap))
+                   if v not in (False, None)]
+        if dropped:
+            print(f"Error: {dropped} not supported for directory inputs "
                   "(batched path)", file=sys.stderr)
             return
         _process_directory(input_path, width, height, output_dir, recursive,
@@ -171,7 +185,9 @@ def _process(args: List[str]) -> None:
                   file=sys.stderr)
             return
         print(f"Processing file: {input_path}")
-        if engine.process_single_image(input_path, width, height, output_dir):
+        if engine.process_single_image(input_path, width, height, output_dir,
+                                       tta=tta, window=window,
+                                       overlap=overlap):
             print("Processing completed")
         else:
             print("Processing failed", file=sys.stderr)
@@ -271,7 +287,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not (argv and argv[0] == "--serve"):
         return repl(device=device, device_postprocess=device_postprocess)
     if partitions > 1:
-        _not_ported("--partitions", "P9")
+        _not_ported("--partitions", "P9b")
         return 2
     from unetseg_tpu_torch import service
 

@@ -10,10 +10,14 @@ Per slice: host C++ preprocess to 512² u8 -> device u8/255, UNet, first-max
 argmax -> host C++ mask cleanup and artifact emission.  In the all-device
 mode (``device_postprocess=True``) the mask cleanup runs on the device
 instead, inside the pipeline (``ops/postprocess.py``, two K3 CCL launches
-per batch), for hosts too poor in cores to keep up.  Entry points run on
-``device="cuda"`` unless the caller asks for the CPU; without CUDA they fail
-rather than fall back.  Still to port (ROADMAP.md queue A): TTA, sliding
-windows, per-class JSON, the confidence cascade and CUDA-graph capture.
+per batch), for hosts too poor in cores to keep up.
+``process_single_image`` also serves the 8-fold dihedral TTA ensemble
+(``tta=True``, :meth:`InferenceEngine.infer_tta`) and sliding windows at
+native resolution (``window=``, :meth:`InferenceEngine.infer_tiled`).
+Entry points run on ``device="cuda"`` unless the caller asks for the CPU;
+without CUDA they fail rather than fall back.  Still to port (ROADMAP.md
+queue A): per-class JSON, the confidence cascade, the partition pool and
+CUDA-graph capture.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.io import native, raw as raw_io
 from unetseg_tpu_torch.models import registry as model_registry
 from unetseg_tpu_torch.ops import postprocess, preprocess
+from unetseg_tpu_torch.parallel import tiles, tta
 from unetseg_tpu_torch.utils.logger import GLOBAL_LOG, derive_log_dir
 
 #: Artifact tiers of batched processing: which of the five artifacts a
@@ -61,9 +66,13 @@ class InferenceEngine:
         self.device = torch.device(device)
         # All-device serving: the mask cleanup runs in the pipeline.
         self.device_postprocess = device_postprocess
+        # The JAX-layout tree the model was built from: TTA transforms it.
+        self.params = params
         self.model = model_registry.build(params, cfg, self.device)
         self._warm: set = set()
-        #: Forward passes run, so a caller can hold kernel launch counts
+        self._tta = None  # the weight-space ensemble, built at first use
+        #: Model passes run (a TTA call makes 8, a tiled image one per
+        #: chunk of windows), so a caller can hold kernel launch counts
         #: against them.
         self.forwards = 0
 
@@ -96,14 +105,76 @@ class InferenceEngine:
             torch.cuda.synchronize(self.device)
         self._warm.add(batch_size)
 
+    def _put(self, host: np.ndarray) -> torch.Tensor:
+        """A host array as a tensor on the engine's device (the copy is
+        enqueued, not waited for)."""
+        t = torch.from_numpy(np.ascontiguousarray(host))
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
     def infer(self, u8_batch: np.ndarray) -> torch.Tensor:
         """Enqueue the pipeline on a host (N, S, S) uint8 batch; returns the
         mask tensor on the device without waiting for it."""
         self.compile(u8_batch.shape[0])
-        u8 = torch.from_numpy(np.ascontiguousarray(u8_batch, dtype=np.uint8))
-        if self.device.type == "cuda":
-            u8 = u8.pin_memory().to(self.device, non_blocking=True)
-        return self._pipeline(u8)
+        return self._pipeline(self._put(np.asarray(u8_batch, np.uint8)))
+
+    def infer_tta(self, u8_2d: np.ndarray) -> torch.Tensor:
+        """8-fold dihedral TTA on one (S, S) uint8 slice -> (S, S) mask on
+        the device (BASELINE config 5), cleaned when the cleanup runs on the
+        device.
+
+        The weight-space form, as the JAX engine serves the ``unet`` arch:
+        8 passes of the untransposed slice through models whose kernels
+        carry the inverse transforms (``parallel/tta.py``), built at the
+        first call and kept.  Each pass runs ``UNet.forward``: the logits
+        are averaged before the argmax, and the fused last level (K6)
+        returns masks only, so a stem-1 model's last level runs in the conv
+        kernel here."""
+        if self._tta is None:
+            self._tta = tta.make_tta_weightspace_pipeline(
+                self.params, self.cfg, self.device,
+                device_postprocess=self.device_postprocess)
+        self.forwards += tta.N_TRANSFORMS
+        return self._tta(self._put(np.asarray(u8_2d, np.uint8))[None])[0]
+
+    def infer_tiled(self, u8_2d, window: int,
+                    overlap: Optional[int] = None) -> torch.Tensor:
+        """Sliding windows at native resolution on one (H, W) uint8 image
+        (numpy, or a tensor on the device) -> (H, W) mask on the device
+        (BASELINE config 3), cleaned when the cleanup runs on the device.
+
+        As in the JAX engine, the window and overlap are
+        :meth:`tile_window`'s: only an image whose shorter side is below the
+        alignment is edge-padded, and its logits are cropped back before
+        the argmax, so the device cleanup's 6%-of-area threshold sees the
+        image's own size.  The windows run ``UNet.forward`` in chunks of
+        ``tiles.MODEL_CHUNK``, each chunk one count of :attr:`forwards`:
+        their logits are blended before the argmax, so no K6."""
+        u8 = (u8_2d.to(self.device) if isinstance(u8_2d, torch.Tensor)
+              else self._put(np.asarray(u8_2d, np.uint8)))
+        window, overlap = self.tile_window(*u8.shape, window, overlap)
+        pipeline = tiles.make_tiled_pipeline(
+            self.model, window=window, overlap=overlap,
+            device_postprocess=self.device_postprocess,
+            on_pass=self._count_pass)
+        return pipeline(u8)
+
+    def tile_window(self, h: int, w: int, window: int,
+                    overlap: Optional[int] = None) -> Tuple[int, int]:
+        """(window, overlap) that :meth:`infer_tiled` runs on an (h, w)
+        image: the window clamped to the image, aligned down to a multiple
+        of ``stem * 2**depth`` (the UNet's pooling needs it; at least one
+        alignment), the overlap half of it by default and below it."""
+        align = self.cfg.stem * (2 ** self.cfg.depth)
+        window = min(window, h, w)
+        window = max(align, window - window % align)
+        if overlap is None:
+            overlap = window // 2
+        return window, min(overlap, window - 1) if window > 1 else 0
+
+    def _count_pass(self) -> None:
+        self.forwards += 1
 
     def to_host(self, masks: torch.Tensor) -> Callable[[], np.ndarray]:
         """Queue the copy of ``masks`` to the host; returns a function that
@@ -209,15 +280,17 @@ def process_single_image(raw_path: str, width: int, height: int,
     """One RAW -> its five artifacts in ``output_dir``; False on failure.
 
     As in the reference (src/mask2polygon.cpp:183-188), a mask without
-    contours skips the overlay and the contour JSON.  ``overlap`` belongs
-    to sliding windows and is ignored without ``window``, as in the JAX
-    engine.  ``eng`` overrides the global engine.
+    contours skips the overlay and the contour JSON.  ``tta=True`` serves
+    the 8-fold dihedral ensemble (:meth:`InferenceEngine.infer_tta`).
+    ``window`` switches to sliding windows at native resolution
+    (:meth:`InferenceEngine.infer_tiled`): the RAW is min-max quantized on
+    the device without the 512² resample (``preprocess.normalize_u8``), and
+    the artifacts are written at the image's own size, so the size JSON's
+    scaled size is the original size.  ``window`` takes precedence over
+    ``tta``, as in the JAX engine.  ``overlap`` defaults to half the
+    window and is ignored without ``window``.  ``eng`` overrides the global
+    engine.
     """
-    del overlap  # only sliding windows (not ported) read it
-    if tta:
-        raise not_ported("tta", "P9")
-    if window is not None:
-        raise not_ported("sliding-window inference", "P9")
     if per_class:
         raise not_ported("per-class JSON", "P6")
     try:
@@ -231,10 +304,21 @@ def process_single_image(raw_path: str, width: int, height: int,
         t_total = time.perf_counter()
 
         raw = raw_io.read_raw(raw_path, width, height)
-        u8 = native.preprocess_u8(np.asarray(raw), eng.size)
+        if window is not None:
+            with torch.inference_mode():
+                u8_dev = preprocess.normalize_u8(eng._put(np.array(raw)))
+            u8 = u8_dev.cpu().numpy()
+        else:
+            u8 = native.preprocess_u8(np.asarray(raw), eng.size)
 
         t_inf = time.perf_counter()
-        mask = eng.to_host(eng.infer(u8[None]))()
+        if window is not None:
+            masks = eng.infer_tiled(u8_dev, window, overlap)[None]
+        elif tta:
+            masks = eng.infer_tta(u8)[None]
+        else:
+            masks = eng.infer(u8[None])
+        mask = eng.to_host(masks)()
         inference_ms = int((time.perf_counter() - t_inf) * 1000)
         GLOBAL_LOG.write(f"Inference time: {inference_ms} ms")
 

@@ -267,12 +267,20 @@ def near_tie(c2: torch.Tensor, wh: torch.Tensor, bh: torch.Tensor,
     that is one ulp of the larger logit.
     """
     c2, wh, bh = c2.float(), wh.float(), bh.float()
-    logits = c2 @ wh + bh
+    return near_tie_sums(c2 @ wh + bh, c2.abs() @ wh.abs() + bh.abs(), ulps)
+
+
+def near_tie_sums(logits: torch.Tensor, absum: torch.Tensor,
+                  ulps: float = 1.0) -> torch.Tensor:
+    """:func:`near_tie` from the logits (..., K) and each class's absolute
+    head sum (..., K) directly, for logits that are averages or blends of
+    several head outputs (TTA, sliding windows) with their sums averaged or
+    blended alike."""
     if logits.shape[-1] < 2:
         return torch.zeros(logits.shape[:-1], dtype=torch.bool,
                            device=logits.device)
     top = logits.topk(2, dim=-1)
-    absum = (c2.abs() @ wh.abs() + bh.abs()).gather(-1, top.indices)
+    absum = absum.gather(-1, top.indices)
     ulp = torch.exp2(torch.floor(torch.log2(
         absum.amax(-1).clamp_min(2.0 ** -126))) - 7)
     return top.values[..., 0] - top.values[..., 1] <= ulps * ulp

@@ -6,7 +6,8 @@ shared across connections:
 
   {"cmd": "init", "cache": "/path/model.ckpt"}
   {"cmd": "process", "path": "...", "width": W, "height": H,
-   "output_dir": "...", "recursive": false, "timeout_s": null,
+   "output_dir": "...", "recursive": false, "tta": false, "window": null,
+   "overlap": null, "timeout_s": null,
    "emitter": "cv2"|"native", "tier": "full"|"mask_json"|"json"}
   {"cmd": "status"}
   {"cmd": "metrics", "n": 20}
@@ -25,10 +26,12 @@ owner); artifact writing happens in the request thread.
   the work finishes in the background, at most ``max_detached`` at a time.
 * ``metrics`` returns the tail of the structured timings log.
 
-Not ported yet, and refused with the ROADMAP.md item that carries them: the
-confidence cascade (the ``cascade*`` init fields, P8), the partition pool
-(``partitions > 1``, P9), and the process fields ``tta``, ``window`` and
-``per_class`` (the engine raises for them, P9 and P6).
+``tta``, ``window`` and ``overlap`` serve a single file (the 8-fold TTA
+ensemble, sliding windows at native resolution); a directory request with
+any of them is refused.  Not ported yet, and refused with the ROADMAP.md
+item that carries them: the confidence cascade (the ``cascade*`` init
+fields, P8), the partition pool (``partitions > 1``, P9b) and the process
+field ``per_class`` (the engine raises for it, P6).
 
 Start with ``python -m unetseg_tpu_torch --serve [HOST:]PORT`` or
 :func:`serve` / :class:`SegmentationService` programmatically.
@@ -92,7 +95,7 @@ class SegmentationService:
                  request_timeout_s: Optional[float] = None,
                  partitions: int = 1, device: str = "cuda"):
         if int(partitions) > 1:
-            raise engine.not_ported("the partitioned engine pool", "P9")
+            raise engine.not_ported("the partitioned engine pool", "P9b")
         self._lock = threading.Lock()   # the card's owner
         self._device = device
         self._device_postprocess = device_postprocess
