@@ -129,6 +129,27 @@ Phases, each of which fails the run (non-zero exit) on error:
    768 RAW, the flagship on the card on the 2048 x 1536 RAW, whose windows
    pass at batches 32 and 3); ms per 2048 x 1536 image: the model, the
    blend, the cleanup and the whole pipeline.
+15. The study runner (``study``, BASELINE config 4), for slim4 on 300
+   synthetic 768² RAWs at batch 128 (a ragged tail of 44) and the seeded
+   flagship on 64 at batch 32: ``engine.process_batch`` (tier full) as the
+   reference, then ``parallel.pipeline.run_study(host_preprocess=True,
+   artifacts="full")``, ``run_study(host_preprocess=False)``,
+   ``run_study_device_resident(artifacts="json")`` with host and with
+   device cleanup, the counters set to 0 just before each: per run one
+   forward a batch, each forward's K1/K2 (and K6 for the flagship)
+   launches, 2 K3 a batch with device cleanup; the masks of every run
+   equal, the full artifacts byte-equal to process_batch's and the
+   resident runs' JSONs too.  The device preprocess (float32) may part from
+   the host C++ one (float64) by one gray level at a few pixels: where that
+   run's masks differ, its u8 must, and its masks must be the host cleanup
+   of the argmax of its own u8.  Slices/s, wall, inference and staging
+   seconds, the host stages (``pipeline.STAGES``: load, h2d, d2h, cleanup,
+   emit) and the device's idle share (torch.profiler) of each run and of
+   process_batch.  Their launches are added to the kernels line.
+16. The bench (``bench``): ``python -m unetseg_tpu_torch.bench`` in a
+   subprocess, its JSON line logged as it is; fg_iou_min and
+   parity_polygon_iou (against the numpy/scipy reference twin) must reach
+   0.999, and the bench must exit 0.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1440,6 +1461,226 @@ def tta_and_windows(torch, np, dev, card):
     return {**worst, "cc_label": cc_err}
 
 
+# Phase 15: the study runner (BASELINE config 4): slim4 on STUDY_SLICES
+# synthetic 768² RAWs at STUDY_BATCH (300 at 128: a ragged tail of 44), the
+# flagship on N_FLAGSHIP RAWs at FLAGSHIP_BATCH.
+STUDY_SLICES = 300
+STUDY_BATCH = 128
+STUDY_RAW = 768
+# Phase 16: the bench's gates, as bench.py holds them.
+BENCH_GATE = 0.999
+BENCH_TIMEOUT_S = 900
+# Kernel launches of one UNet.masks forward.
+MASKS_LAUNCHES = {"slim4": {"conv3x3_bias_act": 6,
+                            "conv3x3_bias_act_small_c": 4, "dec1_fused": 0},
+                  "flagship": {"conv3x3_bias_act": 13,
+                               "conv3x3_bias_act_small_c": 3,
+                               "dec1_fused": 1}}
+
+
+def study_raws(np, d, n, size):
+    """``n`` synthetic RAWs in ``d``, slice i drawn from seed (2024, i),
+    written by 8 threads."""
+    from unetseg_tpu_torch.data import synth_slice
+    from unetseg_tpu_torch.io import raw as raw_io
+
+    os.makedirs(d, exist_ok=True)
+
+    def one(i):
+        p = os.path.join(d, f"slice_{i:03d}.raw")
+        raw_io.write_raw(p, synth_slice(np.random.default_rng((2024, i)),
+                                        size)[0])
+        return p
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        return list(pool.map(one, range(n)))
+
+
+def study_model(torch, np, name, ckpt, paths, batch, tmp, dev, card):
+    """Phase 15 for one model: ``engine.process_batch`` (the reference:
+    tier full), then the four study modes, the counters set to 0 just before
+    each; every mode's masks equal, the full artifacts byte-equal to
+    process_batch's, the resident modes' JSONs too; launches exact; slices/s,
+    the host stages and the device's idle share of each.  Returns the
+    launches of the four counted runs, summed."""
+    from unetseg_tpu_torch import checkpoint, engine
+    from unetseg_tpu_torch.io import native, raw as raw_io
+    from unetseg_tpu_torch.ops import preprocess
+    from unetseg_tpu_torch.parallel import pipeline
+
+    size = STUDY_RAW
+    n = len(paths)
+    n_batches = -(-n // batch)
+    ref_dir = os.path.join(tmp, f"{name}_process_batch")
+    if not engine.initialize_engine(ckpt, log_dir=os.path.join(tmp, "log")):
+        raise AssertionError(f"{name}: initialize_engine returned False")
+    engine.process_batch(paths, size, size, [ref_dir] * n, batch_size=batch,
+                         tier="full")  # warm-up of the ragged tail's batch
+    t0 = time.perf_counter()
+    ok, failed = engine.process_batch(paths, size, size, [ref_dir] * n,
+                                      batch_size=batch, tier="full")
+    ref_s = time.perf_counter() - t0
+    if (ok, failed) != (n, 0):
+        raise AssertionError(f"{name} process_batch: {ok} ok, {failed} failed")
+    prof = profile_pipeline(torch, lambda: engine.process_batch(
+        paths, size, size, [ref_dir] * n, batch_size=batch, tier="full"),
+        iters=1)
+    log({"phase": "study", "model": name, "mode": "process_batch",
+         "slices": n, "batch": batch, "wall_s": ref_s,
+         "slices_per_sec": n / ref_s,
+         "device_idle_share": prof["device_idle_share"],
+         "device_ms": prof["device_ms_per_iter"],
+         "profiled_wall_ms": prof["wall_ms_per_iter"], **card})
+    engine.cleanup_resources()
+
+    params, cfg = checkpoint.load(ckpt)
+    for device_post in (False, True):  # warm-up outside the counted runs
+        pipeline.study_engine(params, cfg, dev, device_post).compile(batch)
+    out = {m: os.path.join(tmp, f"{name}_{m}") for m in
+           ("full", "resident", "resident_post")}
+    modes = {
+        "full": lambda: pipeline.run_study(
+            params, cfg, paths, size, size, batch_size=batch,
+            host_preprocess=True, artifacts="full", out_dir=out["full"],
+            keep_masks=True, device=dev),
+        "device_pre": lambda: pipeline.run_study(
+            params, cfg, paths, size, size, batch_size=batch,
+            host_preprocess=False, keep_masks=True, device=dev),
+        "resident": lambda: pipeline.run_study_device_resident(
+            params, cfg, paths, size, size, batch_size=batch,
+            artifacts="json", out_dir=out["resident"], keep_masks=True,
+            device=dev),
+        "resident_post": lambda: pipeline.run_study_device_resident(
+            params, cfg, paths, size, size, batch_size=batch,
+            artifacts="json", out_dir=out["resident_post"], keep_masks=True,
+            device_postprocess=True, device=dev)}
+    total = {}
+    masks = {}
+    for mode, run in modes.items():
+        engs = [pipeline.study_engine(params, cfg, dev, p)
+                for p in (False, True)]
+        forwards0 = sum(e.forwards for e in engs)
+        reset_all_launches()
+        pipeline.STAGES.reset()
+        res = run()
+        launches = all_launches()
+        forwards = sum(e.forwards for e in engs) - forwards0
+        stages = pipeline.STAGES.summary()
+        masks[mode] = res.masks
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        prof = profile_pipeline(torch, run, iters=1)
+        log({"phase": "study", "model": name, "mode": mode, "slices": n,
+             "batch": batch, "slices_per_sec": res.slices_per_sec,
+             "wall_s": res.wall_s, "inference_s": res.inference_s,
+             "stage_s": res.stage_s,
+             "host_stages_s": {k: v["total_s"] for k, v in stages.items()},
+             "host_stage_calls": {k: v["calls"] for k, v in stages.items()},
+             "forwards": forwards, "launches": launches,
+             "device_idle_share": prof["device_idle_share"],
+             "device_ms": prof["device_ms_per_iter"],
+             "profiled_wall_ms": prof["wall_ms_per_iter"], **card})
+        want = {k: v * n_batches for k, v in MASKS_LAUNCHES[name].items()}
+        want["cc_label"] = 2 * n_batches if mode == "resident_post" else 0
+        if forwards != n_batches or launches != want:
+            raise AssertionError(f"{name} {mode}: {forwards} forwards, "
+                                 f"launches {launches}, want {want}")
+        if res.n_slices != n or res.masks.shape != (n, 512, 512):
+            raise AssertionError(f"{name} {mode}: {res}")
+    for mode, m in masks.items():
+        differing = int((m != masks["full"]).sum())
+        if differing and mode != "device_pre":
+            raise AssertionError(f"{name}: the {mode} study's masks differ "
+                                 f"from the full study's at {differing} "
+                                 f"pixels")
+    # The device preprocess is JAX's float32 one, the host's the C++
+    # float64 one: a few u8 pixels differ by one gray level.  Where the
+    # masks differ, the u8 must, and the masks must be the host cleanup of
+    # the argmax of the device's own u8.
+    slices = np.nonzero((masks["device_pre"] != masks["full"]).any(
+        axis=(1, 2)))[0]
+    u8_differing = 0
+    if slices.size:
+        raws_d = torch.from_numpy(np.stack([np.asarray(raw_io.read_raw(
+            paths[i], size, size)) for i in slices])).to(dev)
+        u8_d = preprocess.resize_normalize_u8(raws_d, cfg.image_size)
+        u8_h = np.stack([native.preprocess_u8(np.asarray(raw_io.read_raw(
+            paths[i], size, size)), cfg.image_size) for i in slices])
+        eng = pipeline.study_engine(params, cfg, dev)
+        want = native.postprocess_batch(eng.to_host(eng._masks(u8_d))())
+        u8_np = u8_d.cpu().numpy()
+        u8_differing = int((u8_np != u8_h).sum())
+        if not (u8_np != u8_h).any(axis=(1, 2)).all() or \
+                np.abs(u8_np.astype(int) - u8_h).max() > 1 or \
+                not np.array_equal(want, masks["device_pre"][slices]):
+            raise AssertionError(f"{name}: the device-preprocess study's "
+                                 f"masks differ on slices {slices.tolist()} "
+                                 f"beyond its u8")
+    names = sorted(os.listdir(ref_dir))
+    if len(names) < 3 * n or names != sorted(os.listdir(out["full"])):
+        raise AssertionError(f"{name}: the study and process_batch wrote "
+                             f"different artifact sets")
+    compare_dirs(ref_dir, out["full"], names)
+    jsons = [f for f in names if f.endswith(".json")]
+    for mode in ("resident", "resident_post"):
+        if sorted(os.listdir(out[mode])) != jsons:
+            raise AssertionError(f"{name} {mode}: other JSON files")
+        compare_dirs(ref_dir, out[mode], jsons)
+    log({"phase": "study_parity", "model": name, "slices": n,
+         "artifacts": len(names),
+         "masks_equal": [m for m in masks if m != "device_pre"],
+         "device_pre_differing_pixels": int(
+             (masks["device_pre"] != masks["full"]).sum()),
+         "device_pre_differing_slices": slices.tolist(),
+         "device_pre_u8_differing_pixels": u8_differing,
+         "fg_share": float((masks["full"] == 2).mean())})
+    for d in (ref_dir, *out.values()):
+        shutil.rmtree(d)
+    return total
+
+
+def study(torch, np, dev, card):
+    """Phase 15 for slim4 and the flagship; returns the counted runs'
+    launches by kernel."""
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = study_raws(np, os.path.join(tmp, "in"), STUDY_SLICES,
+                           STUDY_RAW)
+        runs = [("slim4", CKPT, paths, STUDY_BATCH)]
+        flag_ckpt, flag_paths = flagship_checkpoint(
+            torch, np, os.path.join(tmp, "flagship"), dev)
+        runs.append(("flagship", flag_ckpt, flag_paths, FLAGSHIP_BATCH))
+        for name, ckpt, p, batch in runs:
+            for k, v in study_model(torch, np, name, ckpt, p, batch, tmp,
+                                    dev, card).items():
+                total[k] = total.get(k, 0) + v
+            torch.cuda.empty_cache()
+    return total
+
+
+def bench(card):
+    """Phase 16: ``python -m unetseg_tpu_torch.bench`` in a subprocess; its
+    JSON line logged as it is; fg_iou_min and parity_polygon_iou at least
+    BENCH_GATE."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "unetseg_tpu_torch.bench"],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    log({"phase": "bench", "returncode": proc.returncode,
+         "seconds": seconds, **card})
+    if lines:
+        log(lines[-1])
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"bench exited {proc.returncode}: "
+                             f"{proc.stderr[-4000:]}")
+    out = json.loads(lines[-1])
+    for key in ("fg_iou_min", "parity_polygon_iou"):
+        if out[key] is None or out[key] < BENCH_GATE:
+            raise AssertionError(f"bench: {key} {out[key]} < {BENCH_GATE}")
+
+
 def main() -> int:
     import torch
 
@@ -1814,6 +2055,13 @@ def main() -> int:
         for k in kernels:
             if k["name"] == name:
                 k["max_abs_err"] = max(k["max_abs_err"], err)
+    torch.cuda.empty_cache()
+    for name, n in study(torch, np, dev, card).items():
+        for k in kernels:
+            if k["name"] == name:
+                k["launches"] += n
+    torch.cuda.empty_cache()
+    bench(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

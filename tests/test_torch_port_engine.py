@@ -24,6 +24,8 @@ from unetseg_tpu_torch import checkpoint, engine
 from unetseg_tpu_torch.data import synth_slice
 from unetseg_tpu_torch.io import raw as raw_io
 
+from test_torch_port_native_ready import jax_native  # noqa: F401 (fixture)
+
 SMALL = JaxModelConfig(base_channels=8, depth=2, image_size=64,
                        compute_dtype="float32")
 W, H = 100, 80
@@ -53,7 +55,7 @@ def _files(d):
 
 
 @pytest.fixture()
-def both_engines(ckpt, tmp_path):
+def both_engines(ckpt, tmp_path, jax_native):
     assert jax_engine.initialize_engine(ckpt, log_dir=str(tmp_path / "jlog"))
     assert engine.initialize_engine(ckpt, log_dir=str(tmp_path / "plog"),
                                     device="cpu")
@@ -147,7 +149,7 @@ def test_unported_modes_raise(ckpt, tmp_path):
 
 
 @pytest.fixture()
-def both_device_post(ckpt, tmp_path):
+def both_device_post(ckpt, tmp_path, jax_native):
     assert jax_engine.initialize_engine(ckpt, log_dir=str(tmp_path / "jlog"),
                                         device_postprocess=True)
     assert engine.initialize_engine(ckpt, log_dir=str(tmp_path / "plog"),
@@ -250,7 +252,8 @@ MODES = {"tta": ({"tta": True}, W, H, 8),
 
 @pytest.mark.parametrize("device_post", [False, True], ids=["host", "device"])
 @pytest.mark.parametrize("mode", list(MODES))
-def test_tta_and_window_modes_match_jax(ckpt, tmp_path, mode, device_post):
+def test_tta_and_window_modes_match_jax(ckpt, tmp_path, mode, device_post,
+                                       jax_native):
     """``process_single_image(tta=True)`` and ``(window=..., overlap=...)``
     against the JAX engine, with host and with device cleanup: the same
     masks, so JSONs byte-equal and PNGs pixel-equal; window mode writes at

@@ -23,6 +23,7 @@ from unetseg_tpu_torch.ops import conv, preprocess
 
 from test_torch_port_checkpoint import _assert_same_tree
 from test_torch_port_engine import H, W, _write_raws
+from test_torch_port_native_ready import jax_native  # noqa: F401 (fixture)
 
 MODELS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "models")
@@ -178,7 +179,8 @@ def _flip_prone_ckpt(tmp_path):
     return path
 
 
-def test_bf16_engines_write_equal_artifacts_where_masks_agree(tmp_path):
+def test_bf16_engines_write_equal_artifacts_where_masks_agree(tmp_path,
+                                                             jax_native):
     path = _flip_prone_ckpt(tmp_path)
     paths = _write_raws(tmp_path, 4)
     jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")

@@ -1,5 +1,5 @@
 """``unetseg_tpu_torch``, every submodule and ``chip_smoke.py`` import
-without JAX, flax or the JAX package."""
+without JAX, flax, OpenCV or the JAX package."""
 
 import os
 import subprocess
@@ -15,14 +15,20 @@ names = [m.name for m in pkgutil.walk_packages(unetseg_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "unetseg_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "unetseg_tpu",
+                                    "cv2"))
 print(len(names), bad, *names)
 """
 #: Modules of the later slices, named so the walk cannot miss them.
 NEW_MODULES = ("unetseg_tpu_torch.ops.dec1", "unetseg_tpu_torch.ops.halo_copy",
                "unetseg_tpu_torch.benchmarks.exp_bw",
                "unetseg_tpu_torch.parallel", "unetseg_tpu_torch.parallel.tiles",
-               "unetseg_tpu_torch.parallel.tta")
+               "unetseg_tpu_torch.parallel.tta",
+               "unetseg_tpu_torch.parallel.pipeline", "unetseg_tpu_torch.metrics",
+               "unetseg_tpu_torch.reference_twin",
+               "unetseg_tpu_torch.io.contours_py",
+               "unetseg_tpu_torch.utils.profiling",
+               "unetseg_tpu_torch.utils.watchdog", "unetseg_tpu_torch.bench")
 
 
 def test_port_imports_no_jax():
@@ -50,11 +56,19 @@ def test_port_sources_name_no_jax():
             os.path.join(root, "ops", "halo_copy.py"),
             os.path.join(root, "benchmarks", "exp_bw.py"),
             os.path.join(root, "parallel", "tiles.py"),
-            os.path.join(root, "parallel", "tta.py")} <= set(sources)
+            os.path.join(root, "parallel", "tta.py"),
+            os.path.join(root, "parallel", "pipeline.py"),
+            os.path.join(root, "metrics.py"),
+            os.path.join(root, "reference_twin.py"),
+            os.path.join(root, "io", "contours_py.py"),
+            os.path.join(root, "utils", "profiling.py"),
+            os.path.join(root, "utils", "watchdog.py"),
+            os.path.join(root, "bench.py")} <= set(sources)
     for path in sources:
         src = open(path).read()
         for word in ("import jax", "from jax", "import flax",
-                     "from flax", "from unetseg_tpu ",
+                     "from flax", "import cv2", "from cv2 import",
+                     "from unetseg_tpu ",
                      "from unetseg_tpu.", "import unetseg_tpu\n",
                      "import unetseg_tpu."):
             assert word not in src, (path, word)

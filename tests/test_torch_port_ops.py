@@ -6,11 +6,12 @@ import pytest
 import torch
 
 from unetseg_tpu import data as jax_data, metrics as jax_metrics
-from unetseg_tpu.io import native as jax_native
 from unetseg_tpu.ops import decode as jax_decode, preprocess as jax_pre
 from unetseg_tpu_torch import data, metrics
 from unetseg_tpu_torch.io import native
 from unetseg_tpu_torch.ops import decode, preprocess
+
+from test_torch_port_native_ready import jax_native  # noqa: F401 (fixture)
 
 
 def test_decode_tie_break_lowest_index():
@@ -73,7 +74,7 @@ def test_synth_and_foreground_iou_match_jax():
     assert metrics.foreground_iou(np.zeros((4, 4)), np.zeros((4, 4))) == 1.0
 
 
-def test_native_host_entries_match_jax_binding():
+def test_native_host_entries_match_jax_binding(jax_native):
     rng = np.random.default_rng(1)
     masks = np.zeros((3, 64, 64), np.uint8)
     masks[:, 10:40, 12:50] = 2
@@ -96,7 +97,7 @@ def test_native_host_entries_match_jax_binding():
     assert native.TIER_JSON == jax_native.TIER_JSON
 
 
-def test_emit_batch_matches_jax_binding(tmp_path):
+def test_emit_batch_matches_jax_binding(tmp_path, jax_native):
     rng = np.random.default_rng(2)
     u8 = rng.integers(0, 256, (2, 48, 48), dtype=np.uint8)
     masks = np.zeros((2, 48, 48), np.uint8)
@@ -112,3 +113,26 @@ def test_emit_batch_matches_jax_binding(tmp_path):
             (tmp_path / "jax" / f).read_bytes(), f
     assert sorted(p.name for p in (tmp_path / "port").iterdir()) == \
         sorted(p.name for p in (tmp_path / "jax").iterdir())
+
+
+def test_packed_cleanup_and_scaled_polygons_match_jax_binding(jax_native):
+    """The entries the study runner and the bench add: the cleanup of
+    2-bit-packed masks and the artifact's scaled polygons."""
+    from unetseg_tpu.parallel.pipeline import _pack_mask2
+
+    rng = np.random.default_rng(3)
+    masks = np.zeros((3, 64, 96), np.uint8)
+    masks[:, 8:50, 10:70] = 2
+    masks[1, 20:26, 30:36] = 0  # a hole to fill
+    masks[2] = rng.integers(0, 3, (64, 96))
+    packed = np.asarray(_pack_mask2(masks))
+    got = native.postprocess_packed_batch(packed, 96)
+    np.testing.assert_array_equal(got, jax_native.postprocess_packed_batch(
+        packed, 96))
+    np.testing.assert_array_equal(got, native.postprocess_batch(masks))
+    with pytest.raises(ValueError, match="packed width"):
+        native.postprocess_packed_batch(packed, 64)
+    vis = decode.mask_to_image_np(got[0])
+    polys = native.scaled_polygons(vis, 1024, 768)
+    assert polys and polys == jax_native.scaled_polygons(vis, 1024, 768)
+    assert native.emit_slice_available() and jax_native.emit_slice_available()

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import os
 import time
-from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Tuple
 
@@ -76,19 +75,24 @@ class InferenceEngine:
         #: against them.
         self.forwards = 0
 
-    def _masks(self, u8_batch: torch.Tensor) -> torch.Tensor:
+    def _masks(self, u8_batch: torch.Tensor,
+               x: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(N, S, S) uint8 on the engine's device -> (N, S, S) uint8 class
         masks: u8/255 -> UNet -> first-max argmax (``UNet.masks``: fused
-        into the last decoder level for a stem-1 model)."""
+        into the last decoder level for a stem-1 model).  ``x`` is the
+        model input when the caller already has it
+        (``preprocess.preprocess_batch`` gives both)."""
         self.forwards += 1
         with torch.inference_mode():
-            x = preprocess.model_input_from_u8(u8_batch)[..., None]
+            if x is None:
+                x = preprocess.model_input_from_u8(u8_batch)[..., None]
             return self.model.masks(x)
 
-    def _pipeline(self, u8_batch: torch.Tensor) -> torch.Tensor:
+    def _pipeline(self, u8_batch: torch.Tensor,
+                  x: Optional[torch.Tensor] = None) -> torch.Tensor:
         """:meth:`_masks`, then the mask cleanup when it runs on the
         device."""
-        masks = self._masks(u8_batch)
+        masks = self._masks(u8_batch, x)
         if self.device_postprocess:
             with torch.inference_mode():
                 masks = postprocess.postprocess_masks(masks)
@@ -345,27 +349,6 @@ def process_single_image(raw_path: str, width: int, height: int,
         return False
 
 
-def _prefetch_map(pool, fn, items, depth: int):
-    """Run ``fn`` over ``items`` through ``pool`` with at most ``depth``
-    futures outstanding, yielding results in order (peak host memory
-    O(depth * batch))."""
-    items = list(items)
-    q: deque = deque()
-    idx = 0
-
-    def top_up():
-        nonlocal idx
-        while idx < len(items) and len(q) < depth:
-            q.append(pool.submit(fn, items[idx]))
-            idx += 1
-
-    top_up()
-    while q:
-        fut = q.popleft()
-        top_up()
-        yield fut.result()
-
-
 def process_batch(raw_paths: List[str], width: int, height: int,
                   output_dirs: List[str], batch_size: int = 128,
                   eng: Optional[InferenceEngine] = None,
@@ -431,10 +414,13 @@ def process_batch(raw_paths: List[str], width: int, height: int,
                 u8s = np.concatenate([u8s, np.repeat(u8s[-1:], bucket - n, 0)])
         return u8s, good, n_bad
 
+    from unetseg_tpu_torch.parallel.pipeline import prefetch_map
+
     chunks = [(raw_paths[i: i + batch_size], output_dirs[i: i + batch_size])
               for i in range(0, len(raw_paths), batch_size)]
     with ThreadPoolExecutor(max_workers=2) as loaders:
-        for u8s, good, n_bad in _prefetch_map(loaders, load_chunk, chunks, 2):
+        for _, (u8s, good, n_bad) in prefetch_map(loaders, load_chunk,
+                                                  chunks, 2):
             n_fail += n_bad
             if u8s is None:
                 continue

@@ -72,6 +72,9 @@ def load() -> ctypes.CDLL:
         lib.utpu_postprocess_batch.restype = None
         lib.utpu_postprocess_batch.argtypes = [
             _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, _u8p]
+        lib.utpu_postprocess_packed_batch.restype = None
+        lib.utpu_postprocess_packed_batch.argtypes = [
+            _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, _u8p]
         lib.utpu_emit_batch.restype = ctypes.c_int
         lib.utpu_emit_batch.argtypes = [
             _u8p, _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -119,6 +122,21 @@ def postprocess_batch(masks: np.ndarray) -> np.ndarray:
     return out[0] if squeeze else out
 
 
+def postprocess_packed_batch(packed: np.ndarray, width: int) -> np.ndarray:
+    """:func:`postprocess_batch` of 2-bit-packed class masks (n, h, w/4),
+    pixel 0 in the low bits of each byte, with the unpack fused into the
+    C++ cleanup -> (n, h, w) in {0, 2}."""
+    lib = load()
+    packed = np.ascontiguousarray(packed, dtype=np.uint8)
+    n, h, w4 = packed.shape
+    if w4 * 4 != width:
+        raise ValueError(f"packed width {w4} x 4 is not {width}")
+    out = np.empty((n, h, width), np.uint8)
+    lib.utpu_postprocess_packed_batch(packed.ctypes.data_as(_u8p), n, h,
+                                      width, out.ctypes.data_as(_u8p))
+    return out
+
+
 def extract_contours(mask: np.ndarray) -> List[List[Tuple[int, int]]]:
     """findContours(EXTERNAL, SIMPLE) of a 0/128/255 mask (threshold >127)."""
     lib = load()
@@ -139,6 +157,17 @@ def extract_contours(mask: np.ndarray) -> List[List[Tuple[int, int]]]:
     finally:
         lib.utpu_free(points)
         lib.utpu_free(offsets)
+
+
+def scaled_polygons(mask_vis: np.ndarray, orig_w: int,
+                    orig_h: int) -> List[List[Tuple[int, int]]]:
+    """The polygons the engine writes into ``{base}.json``: contours of a
+    0/128/255 mask scaled to the original resolution with the reference's
+    truncating int cast (src/mask2polygon.cpp:41-63)."""
+    sy = orig_h / mask_vis.shape[0]
+    sx = orig_w / mask_vis.shape[1]
+    return [[(int(x * sx), int(y * sy)) for x, y in c]
+            for c in extract_contours(mask_vis)]
 
 
 def contour_json_bytes(contours: List[List[Tuple[int, int]]], base_name: str,
@@ -166,6 +195,16 @@ def size_json_bytes(filename: str, orig_w: int, orig_h: int,
     ptr = lib.utpu_size_json(filename.encode(), orig_w, orig_h, scaled_w,
                              scaled_h, ctypes.byref(out_len))
     return _take_bytes(lib, ptr, out_len, "utpu_size_json")
+
+
+def emit_slice_available() -> bool:
+    """Whether the artifact emitter can run: the library builds and loads.
+    (:func:`load` raises with the compiler's output where it cannot.)"""
+    try:
+        load()
+    except (OSError, RuntimeError):
+        return False
+    return True
 
 
 def emit_batch(norm_u8: np.ndarray, clean_masks: np.ndarray,

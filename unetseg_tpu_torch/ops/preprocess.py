@@ -82,6 +82,15 @@ def _gather_plan(h: int, w: int, out_size: int):
             ix.astype(np.int64), ix1.astype(np.int64), dx.astype(np.float32))
 
 
+@functools.lru_cache(maxsize=64)
+def _gather_plan_on(h: int, w: int, out_size: int, device: str):
+    """:func:`_gather_plan` as tensors on ``device``, copied once: a copy
+    from pageable host memory waits for the device work queued before it,
+    which would stall a pipeline that enqueues batches ahead."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in _gather_plan(h, w, out_size))
+
+
 def _as_i32(raw: torch.Tensor) -> torch.Tensor:
     """uint16 (or any integer) tensor -> int32.  Few torch ops take
     ``torch.uint16`` (no min or max), so it is read as int16 and masked."""
@@ -108,9 +117,8 @@ def _bilinear_u16(src: torch.Tensor, h: int, w: int, out_size: int
     """(..., h, w) float32 image -> (..., out, out) float32 bilinear
     (reference semantics: truncating sample positions, clamped
     neighbours); a lerp along y, then along x."""
-    plan = _gather_plan(h, w, out_size)
-    iy, iy1, dy, ix, ix1, dx = (torch.from_numpy(a).to(src.device)
-                                for a in plan)
+    iy, iy1, dy, ix, ix1, dx = _gather_plan_on(h, w, out_size,
+                                               str(src.device))
     top = src.index_select(-2, iy)
     bot = src.index_select(-2, iy1)
     rows = top + (bot - top) * dy[:, None]
