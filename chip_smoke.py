@@ -150,6 +150,41 @@ Phases, each of which fails the run (non-zero exit) on error:
    subprocess, its JSON line logged as it is; fg_iou_min and
    parity_polygon_iou (against the numpy/scipy reference twin) must reach
    0.999, and the bench must exit 0.
+17. The confidence cascade (``cascade``, P8): slim4 the student, the seeded
+   flagship (head bias centred) the fallback, ``flagship_slim4_robust``
+   the co-model, on 128 of phase 4's 768² RAWs at batch 128.  For each
+   router (margin, disagree, both), with host and with device cleanup, the
+   counters set to 0 just before each ``infer_cascade``: thresholds that
+   route none (masks bit-equal to the plain slim4 engine's), all
+   (bit-equal to the fallback engine's at batch 128) and half (64 routed
+   in a bucket of 64, every row spliced exactly: the routed rows the
+   fallback engine's at that bucket and at batch 128); per call 6 K1 + 4
+   K2 for the student, 6 + 4 more for the co-model (disagree, both), 13 K1
+   + 3 K2 + 1 K6 for a fallback pass, 2 K3 per pass with device cleanup.
+   The student's and the fallback's masks at batch 128 equal their masks
+   in chunks of 32, the batch phase 10 holds K6 to its plain version at.
+   The statistic on two slices against the CPU path: the margin within
+   1e-2 of it relative plus 1e-2, the disagreement within the pixels where
+   the two models' masks differ between the card and the CPU.
+   ``process_batch`` (tier full) and
+   ``process_single_image`` under each router at the REPL's defaults
+   (margin 1.5; 106 px), launches exact; the TCP service's ``init`` with
+   the cascade fields and one directory ``process``.  ms per batch of 128
+   by CUDA events: the plain pass, each router pass, the fallback at
+   buckets 1, 64 and 128; the routed count at the defaults.
+18. Per-class JSON (``per_class``, P6, BASELINE config 2) for slim4 and the
+   seeded flagship (head bias centred on these RAWs) on 64 512² RAWs at
+   batch 32: ``process_batch(per_class=True)`` (launches exact),
+   ``process_single_image(per_class=True)`` plain, with ``tta=True`` and
+   with ``window=512`` (a 768² RAW), every ``_classes.json`` byte-equal to
+   the pure path's (``io/contours_py`` + ``io/jsonfmt``) of the same
+   decoded mask; ``run_study(per_class=True, artifacts="full")`` byte-equal
+   to process_batch's files; the device cleanup refused.  ``compat``: the
+   normalized PNG of ``preprocess_raw`` decodes to
+   ``native.preprocess_u8``'s pixels, ``process_single_mask`` on the
+   engine's mask writes its contour JSON.  Study slices/s with and without
+   per-class JSON on phase 15's study size (300 512² RAWs at batch 32),
+   three rounds after a warm one, the two modes interleaved.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -163,7 +198,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "models", "flagship_slim4.ckpt")
@@ -1681,6 +1716,685 @@ def bench(card):
             raise AssertionError(f"bench: {key} {out[key]} < {BENCH_GATE}")
 
 
+# Phase 17: the confidence cascade (P8): slim4 the student, the seeded
+# flagship the fallback, slim4_robust the co-model, on CASCADE_BATCH of
+# phase 4's 768² RAWs (the same seed).
+ROBUST_CKPT = os.path.join(REPO, "models", "flagship_slim4_robust.ckpt")
+CASCADE_BATCH = 128
+CASCADE_BUCKETS = (1, 64, 128)
+CASCADE_ROUTERS = ("margin", "disagree", "both")
+# The REPL's defaults: margin 1.5; 106 disagreeing pixels.
+CASCADE_MARGIN = 1.5
+CASCADE_DISAGREE_PX = 106.0
+CASCADE_CPU_SLICES = 2
+# The card's boundary margin against the CPU's: |card - cpu| <= rtol * |cpu|
+# + atol (bf16 on the card, float32 on the CPU).
+CASCADE_MARGIN_RTOL = 1e-2
+CASCADE_MARGIN_ATOL = 1e-2
+N_CASCADE_SERVICE = 32
+# Phase 18: per-class JSON (BASELINE config 2): 512² RAWs at batch 32, and
+# one 768² RAW for window mode.
+PER_CLASS_SLICES = 64
+# Its study rates: phase 15's study size, PER_CLASS_REPEATS rounds.
+PER_CLASS_TIME_SLICES = STUDY_SLICES
+PER_CLASS_REPEATS = 3
+PER_CLASS_BATCH = 32
+PER_CLASS_RAW = 512
+PER_CLASS_WINDOW = 512
+PER_CLASS_WINDOW_RAW = 768
+PURE_WORKERS = 8
+
+
+def add_launches(*parts) -> dict:
+    out = {}
+    for part in parts:
+        for k, v in part.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def cascade_thresholds(np, router, stat, margin):
+    """(threshold, margin threshold) that route half the batch, and the rows
+    they route: the margin router the lower half of the margins, the
+    disagree router the upper half of the disagreements, the both router
+    the top quarter by disagreement and then the lowest margins among the
+    rest, so that each leg routes slices the other does not."""
+    n = stat.size
+    half = n // 2
+    s = np.sort(stat)
+    if router == "margin":
+        thr = float((s[half - 1] + s[half]) / 2)
+        return thr, CASCADE_MARGIN, np.nonzero(stat < thr)[0]
+    if router == "disagree":
+        thr = float((s[half - 1] + s[half]) / 2)
+        return thr, CASCADE_MARGIN, np.nonzero(stat > thr)[0]
+    q = n - n // 4
+    d_thr = float((s[q - 1] + s[q]) / 2)
+    rest = np.nonzero(stat <= d_thr)[0]
+    need = min(max(half - (n - rest.size), 1), rest.size - 1)
+    m = np.sort(margin[rest])
+    m_thr = float((m[need - 1] + m[need]) / 2)
+    return d_thr, m_thr, np.nonzero((stat > d_thr) | (margin < m_thr))[0]
+
+
+def default_routed(np, router, stat, margin) -> int:
+    """Slices the REPL's default thresholds route."""
+    if router == "margin":
+        return int((stat < CASCADE_MARGIN).sum())
+    if router == "disagree":
+        return int((stat > CASCADE_DISAGREE_PX).sum())
+    return int(((stat > CASCADE_DISAGREE_PX)
+                | (margin < CASCADE_MARGIN)).sum())
+
+
+def cascade_pass_launches(router, post, student_model):
+    """(launches of the router pass, of a fallback pass): the margin and
+    both routers run the student's logits (``UNet.forward``: every conv in
+    the conv kernel, no K6), the disagree router its masks; the disagree
+    and both routers the co-model's masks (slim4's geometry); the fallback
+    its masks (the flagship: K6); 2 K3 per pass with device cleanup."""
+    zero = {"conv3x3_bias_act": 0, "conv3x3_bias_act_small_c": 0,
+            "dec1_fused": 0, "cc_label": 0}
+    cleanup = {"cc_label": 2 if post else 0}
+    student = (MASKS_LAUNCHES["slim4"] if router == "disagree" else
+               convs_per_forward(student_model))
+    co = MASKS_LAUNCHES["slim4"] if router != "margin" else {}
+    return (add_launches(zero, student, co, cleanup),
+            add_launches(zero, MASKS_LAUNCHES["flagship"], cleanup))
+
+
+def router_masks(torch, eng, u8_dev):
+    """The student's and the co-model's masks on a u8 batch, before the
+    cleanup, by the routes :meth:`InferenceEngine._router_pass` takes: the
+    student's logits and argmax for the both router, its masks for the
+    disagree router; the co-model's masks."""
+    from unetseg_tpu_torch.ops import preprocess
+    from unetseg_tpu_torch.ops.decode import decode_mask
+
+    with torch.inference_mode():
+        x = preprocess.model_input_from_u8(u8_dev)[..., None]
+        student = (eng.model.masks(x) if eng.cascade_router == "disagree"
+                   else decode_mask(eng.model(x), eng.cfg.num_classes))
+        co = eng._cascade_co_model.masks(x)
+    return student.cpu().numpy(), co.cpu().numpy()
+
+
+def cascade_router(torch, np, router, post, params, u8, u8_dev, refs, dev,
+                   card):
+    """Phase 17 for one router and cleanup: route none, all and half, the
+    counters set to 0 just before each call; returns (the calls' launches,
+    the statistic, the margin, the engine)."""
+    from unetseg_tpu_torch import engine
+    from unetseg_tpu_torch.models import registry
+
+    n = u8.shape[0]
+    eng = engine.InferenceEngine(*params["student"], device=dev,
+                                 device_postprocess=post)
+    co = params["co"] if router != "margin" else (None, None)
+    eng.attach_cascade(*params["fallback"], router=router, co_params=co[0],
+                       co_cfg=co[1])
+    eng.compile_cascade(n)
+    _, stat_d, margin_d = eng._router_pass(u8_dev)
+    stat = stat_d.cpu().numpy()
+    margin = stat if margin_d is None else margin_d.cpu().numpy()
+    router_pass, fallback_pass = cascade_pass_launches(router, post,
+                                                       eng.model)
+    st_masks, fb_masks, fb_eng = refs[post]
+    half_thr, half_m_thr, half_rows = cascade_thresholds(np, router, stat,
+                                                         margin)
+    cases = {"none": ((-np.inf, CASCADE_MARGIN) if router == "margin" else
+                      (np.inf, -np.inf)),
+             "all": ((np.inf, CASCADE_MARGIN) if router == "margin" else
+                     (-1.0, np.inf)),
+             "half": (half_thr, half_m_thr)}
+    buckets = []
+    fallback = eng._fallback_pass
+    eng._fallback_pass = lambda u: buckets.append(u.shape[0]) or fallback(u)
+    total = {}
+    for case, (thr, m_thr) in cases.items():
+        eng.cascade_threshold, eng.cascade_margin_threshold = thr, m_thr
+        buckets.clear()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        masks, got_stat, n_routed = eng.infer_cascade(u8)
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        total = add_launches(total, launches)
+        want = add_launches(router_pass, fallback_pass if n_routed else {})
+        rows = {"none": np.arange(0), "all": np.arange(n),
+                "half": half_rows}[case]
+        bucket = min(1 << (rows.size - 1).bit_length(), n) if rows.size \
+            else None
+        record = {"phase": "cascade", "router": router,
+                  "cleanup": "device" if post else "host", "case": case,
+                  "batch": n, "threshold": thr, "margin_threshold": m_thr,
+                  "routed": n_routed, "buckets": list(buckets),
+                  "launches": launches, "wall_s": wall, **card}
+        if not np.array_equal(got_stat, stat):
+            raise AssertionError(f"cascade {router}: the statistic moved "
+                                 f"between two runs of the same batch")
+        if launches != want:
+            raise AssertionError(f"cascade {router} {case}: launches "
+                                 f"{launches}, want {want}")
+        if n_routed != rows.size or buckets != ([bucket] if bucket else []):
+            raise AssertionError(f"cascade {router} {case}: routed "
+                                 f"{n_routed} in {buckets}, want {rows.size} "
+                                 f"in {bucket}")
+        if case == "half" and rows.size != n // 2:
+            s = np.sort(stat)
+            if s[n // 2 - 1] != s[n // 2]:
+                raise AssertionError(f"cascade {router}: {rows.size} routed "
+                                     f"at the half threshold, want {n // 2}")
+            record["median_tie"] = True
+        keep = np.setdiff1d(np.arange(n), rows)
+        if not np.array_equal(masks[keep], st_masks[keep]):
+            raise AssertionError(f"cascade {router} {case}: unrouted rows "
+                                 f"differ from the plain student engine's")
+        if case == "all" and not np.array_equal(masks, fb_masks):
+            raise AssertionError(f"cascade {router}: route-all masks differ "
+                                 f"from the fallback engine's")
+        if case == "half":
+            sub = np.concatenate([u8[rows], np.repeat(
+                u8[rows[:1]], bucket - rows.size, axis=0)])
+            want_rows = fb_eng.to_host(fb_eng.infer(sub))()[:rows.size]
+            if not np.array_equal(masks[rows], want_rows):
+                raise AssertionError(f"cascade {router}: the routed rows "
+                                     f"differ from the fallback engine's at "
+                                     f"bucket {bucket}")
+            # the bucket's rows against the same rows at batch n (held to
+            # chunks of FLAGSHIP_BATCH above)
+            differ = int((masks[rows] != fb_masks[rows]).sum())
+            record["routed_vs_fallback_batch_%d_differing_pixels" % n] = differ
+            if differ:
+                raise AssertionError(f"cascade {router}: the routed rows at "
+                                     f"bucket {bucket} differ from the "
+                                     f"fallback's at batch {n} at {differ} "
+                                     f"pixels")
+        log(record)
+    eng._fallback_pass = fallback
+    # The card's statistic against the CPU path on two slices: the margin
+    # within CASCADE_MARGIN_RTOL/ATOL; the disagreement within the pixels
+    # where the two models' masks (before the cleanup, as the router counts
+    # them) differ between the card and the CPU, its largest honest gap.
+    cpu = engine.InferenceEngine(*params["student"], device="cpu")
+    cpu.attach_cascade(*params["fallback"], router=router, co_params=co[0],
+                       co_cfg=co[1])
+    k = CASCADE_CPU_SLICES
+    u8_k = torch.from_numpy(u8[:k])
+    _, cpu_stat, cpu_margin = cpu._router_pass(u8_k)
+    cpu_stat = cpu_stat.numpy()
+    cpu_margin = cpu_stat if cpu_margin is None else cpu_margin.numpy()
+    record = {"phase": "cascade_cpu", "router": router,
+              "cleanup": "device" if post else "host",
+              "card": stat[:k].tolist(), "cpu": cpu_stat.tolist()}
+    if router != "disagree":
+        card_m, cpu_m = margin[:k], cpu_margin
+        gap = np.abs(card_m - cpu_m)
+        bound = CASCADE_MARGIN_RTOL * np.abs(cpu_m) + CASCADE_MARGIN_ATOL
+        record.update(card_margin=card_m.tolist(), cpu_margin=cpu_m.tolist(),
+                      margin_gap=gap.tolist(), margin_bound=bound.tolist())
+        if (gap > bound).any():
+            raise AssertionError(f"cascade {router}: card margin "
+                                 f"{card_m.tolist()} against the CPU's "
+                                 f"{cpu_m.tolist()}, beyond {bound.tolist()}")
+    if router != "margin":
+        card_s, card_c = (m[:k] for m in router_masks(torch, eng, u8_dev))
+        cpu_s, cpu_c = router_masks(torch, cpu, u8_k)
+        slack = ((card_s != cpu_s).reshape(k, -1).sum(1)
+                 + (card_c != cpu_c).reshape(k, -1).sum(1))
+        if not np.array_equal((card_s != card_c).reshape(k, -1).sum(1),
+                              stat[:k]):
+            raise AssertionError(f"cascade {router}: the card's statistic "
+                                 f"is not its models' disagreement")
+        gap = np.abs(stat[:k] - cpu_stat)
+        record.update(disagree_gap=gap.tolist(), disagree_bound=slack.tolist())
+        if (gap > slack).any():
+            raise AssertionError(f"cascade {router}: card disagreement "
+                                 f"{stat[:k].tolist()} against the CPU's "
+                                 f"{cpu_stat.tolist()}, beyond {slack.tolist()}")
+    log(record)
+    del cpu, registry
+    return total, stat, margin, eng
+
+
+def cascade_phase(torch, np, dev, card):
+    """Phase 17: the confidence cascade at batch CASCADE_BATCH for each
+    router, with host and device cleanup; its entry points and the TCP
+    service; its times.  Returns the counted calls' launches by kernel."""
+    from unetseg_tpu_torch import checkpoint, engine, service
+    from unetseg_tpu_torch.data import synth_slice
+    from unetseg_tpu_torch.io import native, raw as raw_io
+
+    n = CASCADE_BATCH
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fb_ckpt, _ = flagship_checkpoint(torch, np,
+                                         os.path.join(tmp, "flagship"), dev)
+        in_dir = os.path.join(tmp, "in")
+        os.makedirs(in_dir)
+        paths = write_raws(raw_io, synth_slice, np, in_dir, n, 768)
+        u8 = np.stack([native.preprocess_u8(np.asarray(raw_io.read_raw(
+            p, 768, 768)), 512) for p in paths])
+        u8_dev = torch.from_numpy(u8).to(dev)
+        params = {k: checkpoint.load(c) for k, c in (
+            ("student", CKPT), ("fallback", fb_ckpt), ("co", ROBUST_CKPT))}
+        refs = {}
+        for post in (False, True):
+            st = engine.InferenceEngine(*params["student"], device=dev,
+                                        device_postprocess=post)
+            fb = engine.InferenceEngine(*params["fallback"], device=dev,
+                                        device_postprocess=post)
+            refs[post] = (st.to_host(st.infer(u8))(),
+                          fb.to_host(fb.infer(u8))(), fb)
+            # Batch 128 against the batch the kernels are held to their
+            # plain versions at (phase 10's check_k6 on the flagship's
+            # trunk at FLAGSHIP_BATCH): the same masks, row for row.
+            for (got, e), name in zip(((refs[post][0], st),
+                                       (refs[post][1], fb)),
+                                      ("student", "fallback")):
+                chunked = np.concatenate([e.to_host(e.infer(
+                    u8[i:i + FLAGSHIP_BATCH]))() for i in range(
+                        0, n, FLAGSHIP_BATCH)])
+                differ = int((chunked != got).sum())
+                log({"phase": "cascade_batch_invariance", "model": name,
+                     "cleanup": "device" if post else "host", "batch": n,
+                     "chunk": FLAGSHIP_BATCH, "differing_pixels": differ})
+                if differ:
+                    raise AssertionError(
+                        f"cascade: the {name}'s masks at batch {n} differ "
+                        f"from its masks in chunks of {FLAGSHIP_BATCH} at "
+                        f"{differ} pixels")
+        engines = {}
+        for router in CASCADE_ROUTERS:
+            for post in (False, True):
+                launches, stat, margin, eng = cascade_router(
+                    torch, np, router, post, params, u8, u8_dev, refs, dev,
+                    card)
+                total = add_launches(total, launches)
+                if not post:
+                    engines[router] = (eng, stat, margin)
+                torch.cuda.empty_cache()
+        del refs
+
+        # ms per batch by CUDA events, host cleanup.
+        plain = engine.InferenceEngine(*params["student"], device=dev)
+        plain.compile(n)
+        times = {"plain": time_ms(torch, lambda: plain._pipeline(u8_dev), 10)}
+        for router, (eng, stat, margin) in engines.items():
+            times[router] = time_ms(torch, lambda: eng._router_pass(u8_dev),
+                                    10)
+        eng = engines["margin"][0]
+        for b in CASCADE_BUCKETS:
+            times[f"fallback_{b}"] = time_ms(
+                torch, lambda: eng._fallback_pass(u8_dev[:b]), 5)
+        walls = {}
+        for router, (eng, stat, margin) in engines.items():
+            eng.cascade_threshold = (CASCADE_MARGIN if router == "margin"
+                                     else CASCADE_DISAGREE_PX)
+            eng.cascade_margin_threshold = CASCADE_MARGIN
+            eng.infer_cascade(u8)
+            t0 = time.perf_counter()
+            _, _, routed = eng.infer_cascade(u8)
+            walls[router] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                             "routed": routed}
+            if routed != default_routed(np, router, stat, margin):
+                raise AssertionError(f"cascade {router}: {routed} routed at "
+                                     f"the REPL's defaults")
+        stats = {r: (stat, margin) for r, (_, stat, margin)
+                 in engines.items()}
+        log({"phase": "cascade_time", "batch": n, "ms_per_batch": times,
+             "infer_cascade_at_defaults": walls,
+             "defaults": {"margin": CASCADE_MARGIN,
+                          "disagree_px": CASCADE_DISAGREE_PX}, **card})
+        del engines, plain, eng
+        torch.cuda.empty_cache()
+
+        # The entry points under each router, host cleanup, the REPL's
+        # default thresholds.
+        for router in CASCADE_ROUTERS:
+            kw = dict(cascade_ckpt=fb_ckpt, cascade_router=router,
+                      cascade_co_ckpt=ROBUST_CKPT,
+                      cascade_threshold=CASCADE_MARGIN if router == "margin"
+                      else CASCADE_DISAGREE_PX)
+            if not engine.initialize_engine(
+                    CKPT, log_dir=os.path.join(tmp, "log"), device=dev, **kw):
+                raise AssertionError(f"cascade {router}: initialize_engine "
+                                     f"returned False")
+            eng = engine.get_engine()
+            out = os.path.join(tmp, f"batch_{router}")
+            reset_all_launches()
+            t0 = time.perf_counter()
+            ok, failed = engine.process_batch(paths, 768, 768, [out] * n,
+                                              batch_size=n, tier="full")
+            wall = time.perf_counter() - t0
+            launches = all_launches()
+            total = add_launches(total, launches)
+            with open(engine.GLOBAL_LOG.jsonl_path) as f:
+                routed = [json.loads(line) for line in f][-1]["cascade_routed"]
+            if (ok, failed) != (n, 0):
+                raise AssertionError(f"cascade {router} process_batch: {ok} "
+                                     f"ok, {failed} failed")
+            router_pass, fallback_pass = cascade_pass_launches(
+                router, False, eng.model)
+            want = add_launches(router_pass, fallback_pass if routed else {})
+            if launches != want or routed != default_routed(
+                    np, router, *stats[router]):
+                raise AssertionError(f"cascade {router} process_batch: "
+                                     f"{routed} routed, launches {launches}, "
+                                     f"want {want}")
+            names = set(os.listdir(out))
+            for p in paths:
+                base = os.path.basename(p)[:-len(".raw")]
+                if not {base + a for a in ARTIFACTS[:3]} <= names:
+                    raise AssertionError(f"cascade {router}: {base} lacks "
+                                         f"artifacts")
+            check_artifacts(out, os.path.basename(
+                paths[min(17, n - 1)])[:-len(".raw")])
+            single = os.path.join(tmp, f"single_{router}")
+            if not engine.process_single_image(paths[3], 768, 768, single):
+                raise AssertionError(f"cascade {router}: "
+                                     f"process_single_image failed")
+            check_artifacts(single, "slice_003")
+            log({"phase": "cascade_entry_points", "router": router,
+                 "process_batch_s": wall, "routed": routed,
+                 "artifacts": len(names), "launches": launches,
+                 "init_forwards": eng.forwards, **card})
+            engine.cleanup_resources()
+            torch.cuda.empty_cache()
+
+        # The TCP service: init with the cascade fields, one directory.
+        svc_in = os.path.join(tmp, "svc_in")
+        os.makedirs(svc_in)
+        for p in paths[:N_CASCADE_SERVICE]:
+            shutil.copy(p, svc_in)
+        svc = service.SegmentationService(port=0, device=dev)
+        addr = svc.start()
+        try:
+            resps = []
+            for req in ({"cmd": "init", "cache": CKPT, "cascade": fb_ckpt,
+                         "cascade_router": "both", "cascade_co": ROBUST_CKPT,
+                         "cascade_threshold": CASCADE_DISAGREE_PX,
+                         "cascade_margin_threshold": CASCADE_MARGIN},
+                        {"cmd": "process", "path": svc_in, "width": 768,
+                         "height": 768,
+                         "output_dir": os.path.join(tmp, "svc_out")},
+                        {"cmd": "status"}, {"cmd": "shutdown"}):
+                resps.append(service.request(addr, req, timeout=300))
+                if not resps[-1].get("ok"):
+                    raise AssertionError(f"cascade service {req['cmd']}: "
+                                         f"{resps[-1]}")
+        finally:
+            svc.stop()
+        if resps[1]["processed"] != N_CASCADE_SERVICE or resps[1]["failed"]:
+            raise AssertionError(f"cascade service: {resps[1]}")
+        log({"phase": "cascade_service", "responses": resps})
+    return total
+
+
+def pure_classes_json(decoded, base, w, h) -> bytes:
+    """``{base}_classes.json`` of one decoded mask by the pure path
+    (``io/contours_py`` + ``io/jsonfmt``)."""
+    import numpy as np
+
+    from unetseg_tpu_torch.io import contours_py, jsonfmt
+
+    labeled = []
+    for idx, cls in enumerate((1, 2)):
+        cs = contours_py.extract_contours(
+            np.where(decoded == cls, 255, 0).astype(np.uint8))
+        cs = contours_py.map_contour_points(cs, w / decoded.shape[1],
+                                            h / decoded.shape[0])
+        labeled += [(cls, idx, c) for c in cs]
+    return jsonfmt.contour_json_bytes_labeled(labeled, base, w, h)
+
+
+def check_pure(pool, items):
+    """Every (file, decoded mask, base, w, h) of ``items``: the file's
+    bytes equal the pure path's.  Returns how many shapes of each class
+    the files hold."""
+    futures = [(path, pool.submit(pure_classes_json, m, base, w, h))
+               for path, m, base, w, h in items]
+    shapes = {1: 0, 2: 0}
+    for path, fut in futures:
+        with open(path, "rb") as f:
+            got = f.read()
+        if got != fut.result():
+            raise AssertionError(f"{path}: not the pure path's bytes")
+        for shape in json.loads(got)["shapes"]:
+            shapes[shape["label"]] += 1
+    return shapes
+
+
+def check_compat(np, raw_path, u8, out, bases, cdir):
+    """Phase 18's compat checks: ``compat.preprocess_raw`` writes
+    ``native.preprocess_u8``'s pixels; ``compat.process_single_mask`` on the
+    engine's mask, size JSON and normalized PNG of the first slice with
+    contours writes the engine's contour JSON, byte for byte, and its
+    overlay's pixels."""
+    from unetseg_tpu_torch import compat
+    from unetseg_tpu_torch.io import png
+
+    size = PER_CLASS_RAW
+    if not compat.preprocess_raw(raw_path, os.path.join(cdir, "n.png"),
+                                 os.path.join(cdir, "s.json"), size, size):
+        raise AssertionError("compat.preprocess_raw failed")
+    if not np.array_equal(png.read_png_gray(os.path.join(cdir, "n.png")),
+                          u8):
+        raise AssertionError("compat: the normalized PNG is not "
+                             "native.preprocess_u8's pixels")
+    b0 = next((b for b in bases if os.path.exists(os.path.join(
+        out, b + ".json"))), None)
+    if b0 is None:
+        raise AssertionError("compat: no slice has contours")
+    compat.process_single_mask(
+        os.path.join(out, b0 + "_mask.png"), cdir,
+        os.path.join(out, b0 + "_original_sizes.json"),
+        os.path.join(out, b0 + "_normalized.png"), b0)
+    compare_dirs(out, cdir, [b0 + ".json"])
+    if not np.array_equal(
+            png.read_png_bgr(os.path.join(cdir, b0 + "_contour_overlay.png")),
+            png.read_png_bgr(os.path.join(out, b0 + "_contour_overlay.png"))):
+        raise AssertionError("compat: the overlay's pixels differ from the "
+                             "engine's")
+
+
+def per_class_model(torch, np, name, ckpt, paths, win_raw, tmp, dev, card,
+                    pool):
+    """Phase 18 for one model; returns the counted runs' launches."""
+    from unetseg_tpu_torch import checkpoint, engine
+    from unetseg_tpu_torch.io import native, raw as raw_io
+    from unetseg_tpu_torch.ops import preprocess
+    from unetseg_tpu_torch.parallel import pipeline
+
+    n, size, batch = len(paths), PER_CLASS_RAW, PER_CLASS_BATCH
+    total = {}
+    if not engine.initialize_engine(ckpt, log_dir=os.path.join(tmp, "log"),
+                                    device=dev):
+        raise AssertionError(f"per_class {name}: initialize_engine failed")
+    eng = engine.get_engine()
+    out = os.path.join(tmp, f"{name}_batch")
+    reset_all_launches()
+    forwards0 = eng.forwards
+    t0 = time.perf_counter()
+    ok, failed = engine.process_batch(paths, size, size, [out] * n,
+                                      batch_size=batch, tier="full",
+                                      per_class=True)
+    wall = time.perf_counter() - t0
+    pb_launches, forwards = all_launches(), eng.forwards - forwards0
+    total = add_launches(total, pb_launches)
+    want = add_launches({k: v * forwards for k, v in
+                         MASKS_LAUNCHES[name].items()}, {"cc_label": 0})
+    if (ok, failed) != (n, 0) or pb_launches != want:
+        raise AssertionError(f"per_class {name} process_batch: {ok} ok, "
+                             f"{failed} failed, launches {pb_launches}, want "
+                             f"{want}")
+    u8 = np.stack([native.preprocess_u8(np.asarray(raw_io.read_raw(
+        p, size, size)), 512) for p in paths])
+    decoded = np.concatenate([eng.to_host(eng._masks(eng._put(
+        u8[i:i + batch])))() for i in range(0, n, batch)])
+    bases = [os.path.basename(p)[:-len(".raw")] for p in paths]
+    items = [(os.path.join(out, b + "_classes.json"), decoded[i], b, size,
+              size) for i, b in enumerate(bases)]
+
+    # process_single_image: plain, TTA and window mode.
+    single = {}
+    for mode, kw in (("plain", {}), ("tta", {"tta": True}),
+                     ("window", {"window": PER_CLASS_WINDOW})):
+        d = os.path.join(tmp, f"{name}_single_{mode}")
+        raw_path, w = (win_raw, PER_CLASS_WINDOW_RAW) if mode == "window" \
+            else (paths[0], size)
+        t0 = time.perf_counter()
+        if not engine.process_single_image(raw_path, w, w, d, per_class=True,
+                                           **kw):
+            raise AssertionError(f"per_class {name} {mode}: failed")
+        single[mode] = time.perf_counter() - t0
+        base = os.path.basename(raw_path)[:-len(".raw")]
+        if mode == "window":
+            raw = np.asarray(raw_io.read_raw(raw_path, w, w))
+            with torch.inference_mode():
+                u8_dev = preprocess.normalize_u8(eng._put(np.array(raw)))
+            m = eng.to_host(eng.infer_tiled(u8_dev, PER_CLASS_WINDOW)[None])()
+        elif mode == "tta":
+            m = eng.to_host(eng.infer_tta(u8[0])[None])()
+        else:
+            m = eng.to_host(eng._masks(eng._put(u8[:1])))()
+        items.append((os.path.join(d, base + "_classes.json"), m[0], base,
+                      w, w))
+    shapes = check_pure(pool, items)
+
+    if name == "slim4":
+        check_compat(np, paths[0], u8[0], out, bases,
+                     os.path.join(tmp, f"{name}_compat"))
+    engine.cleanup_resources()
+
+    # The study runner, with and without per-class JSON.
+    params, cfg = checkpoint.load(ckpt)
+    seng = pipeline.study_engine(params, cfg, dev)
+    seng.compile(batch)
+    for pc in (True, False):
+        sdir = os.path.join(tmp, f"{name}_study_{pc}")
+        reset_all_launches()
+        forwards0 = seng.forwards
+        pipeline.run_study(params, cfg, paths, size, size,
+                           batch_size=batch, host_preprocess=True,
+                           artifacts="full", out_dir=sdir, per_class=pc,
+                           device=dev)
+        s_launches, s_forwards = all_launches(), seng.forwards - forwards0
+        total = add_launches(total, s_launches)
+        want = add_launches({k: v * s_forwards for k, v in
+                             MASKS_LAUNCHES[name].items()}, {"cc_label": 0})
+        if s_launches != want or s_forwards != -(-n // batch):
+            raise AssertionError(f"per_class {name} study: {s_forwards} "
+                                 f"forwards, launches {s_launches}")
+        names = sorted(os.listdir(sdir))
+        want_names = sorted(f for f in os.listdir(out)
+                            if pc or not f.endswith("_classes.json"))
+        if names != want_names:
+            raise AssertionError(f"per_class {name} study (per_class={pc}) "
+                                 f"wrote other files than process_batch")
+        compare_dirs(out, sdir, names)
+
+    # The all-device mode refuses it, as the JAX engine does.
+    if not engine.initialize_engine(ckpt, log_dir=os.path.join(tmp, "log"),
+                                    device=dev, device_postprocess=True):
+        raise AssertionError("per_class: device-cleanup init failed")
+    refused = not engine.process_single_image(
+        paths[0], size, size, os.path.join(tmp, "refused"), per_class=True)
+    try:
+        engine.process_batch(paths[:1], size, size,
+                             [os.path.join(tmp, "refused")], per_class=True)
+        refused = False
+    except ValueError as e:
+        refused = refused and "per_class" in str(e)
+    engine.cleanup_resources()
+    if not refused:
+        raise AssertionError("per_class: device cleanup was not refused")
+    log({"phase": "per_class", "model": name, "slices": n, "batch": batch,
+         "process_batch_s": wall, "launches": pb_launches,
+         "forwards": forwards, "classes_jsons": len(items), "shapes_by_class": shapes,
+         "single_image_s": single, "device_postprocess_refused": refused,
+         **card})
+    return total
+
+
+def per_class_study_time(torch, np, name, ckpt, paths, tmp, dev, card):
+    """Study slices/s with and without per-class JSON on ``paths``
+    (PER_CLASS_TIME_SLICES 512² RAWs) at PER_CLASS_BATCH, artifacts "full":
+    a warm round, then PER_CLASS_REPEATS rounds, each mode once a round and
+    the order alternating, so drift falls on both modes alike."""
+    from unetseg_tpu_torch import checkpoint
+    from unetseg_tpu_torch.parallel import pipeline
+
+    size, batch = PER_CLASS_RAW, PER_CLASS_BATCH
+    params, cfg = checkpoint.load(ckpt)
+    pipeline.study_engine(params, cfg, dev).compile(batch)
+    rates, walls = {True: [], False: []}, {True: [], False: []}
+    out = os.path.join(tmp, f"{name}_time")
+    for r in range(PER_CLASS_REPEATS + 1):
+        for pc in ((True, False) if r % 2 else (False, True)):
+            res = pipeline.run_study(params, cfg, paths, size, size,
+                                     batch_size=batch, host_preprocess=True,
+                                     artifacts="full", out_dir=out,
+                                     per_class=pc, device=dev)
+            shutil.rmtree(out)
+            if res.n_slices != len(paths):
+                raise AssertionError(f"per_class {name} timing study: "
+                                     f"{res.n_slices} slices")
+            if r:
+                rates[pc].append(res.slices_per_sec)
+                walls[pc].append(res.wall_s)
+    med = {pc: float(np.median(v)) for pc, v in rates.items()}
+    log({"phase": "per_class_study_time", "model": name,
+         "slices": len(paths), "batch": batch, "repeats": PER_CLASS_REPEATS,
+         "slices_per_sec": {"per_class": rates[True],
+                            "without": rates[False]},
+         "wall_s": {"per_class": walls[True], "without": walls[False]},
+         "median_slices_per_sec": {"per_class": med[True],
+                                   "without": med[False]},
+         "per_class_cost": 1.0 - med[True] / med[False],
+         "host_cpus": os.cpu_count(), **card})
+
+
+def per_class_phase(torch, np, dev, card):
+    """Phase 18: per-class JSON (BASELINE config 2) for slim4 and the seeded
+    flagship; returns the counted runs' launches by kernel."""
+    import multiprocessing
+
+    from unetseg_tpu_torch import checkpoint
+    from unetseg_tpu_torch.data import synth_slice
+    from unetseg_tpu_torch.io import native, raw as raw_io
+    from unetseg_tpu_torch.models import registry
+    from unetseg_tpu_torch.ops import preprocess
+
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
+            max_workers=PURE_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        for d in ("in", "win"):
+            os.makedirs(os.path.join(tmp, d))
+        paths = write_raws(raw_io, synth_slice, np, os.path.join(tmp, "in"),
+                           PER_CLASS_SLICES, PER_CLASS_RAW)
+        win_raw = write_raws(raw_io, synth_slice, np,
+                             os.path.join(tmp, "win"), 1,
+                             PER_CLASS_WINDOW_RAW)[0]
+        flag_ckpt, _ = flagship_checkpoint(torch, np,
+                                           os.path.join(tmp, "flagship"), dev)
+        # its head bias centred on this phase's own 512² RAWs
+        centre_head_bias(torch, checkpoint, registry, native, raw_io,
+                         preprocess, flag_ckpt, paths[:4], PER_CLASS_RAW, dev)
+        for name, ckpt in (("slim4", CKPT), ("flagship", flag_ckpt)):
+            total = add_launches(total, per_class_model(
+                torch, np, name, ckpt, paths, win_raw, tmp, dev, card, pool))
+            torch.cuda.empty_cache()
+        time_paths = study_raws(np, os.path.join(tmp, "time"),
+                                PER_CLASS_TIME_SLICES, PER_CLASS_RAW)
+        for name, ckpt in (("slim4", CKPT), ("flagship", flag_ckpt)):
+            per_class_study_time(torch, np, name, ckpt, time_paths, tmp, dev,
+                                 card)
+            torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2062,6 +2776,12 @@ def main() -> int:
                 k["launches"] += n
     torch.cuda.empty_cache()
     bench(card)
+    for phase in (cascade_phase, per_class_phase):
+        torch.cuda.empty_cache()
+        for name, n in phase(torch, np, dev, card).items():
+            for k in kernels:
+                if k["name"] == name:
+                    k["launches"] += n
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -127,25 +127,30 @@ def test_entry_points_default_to_cuda_and_fail_without_it(ckpt, tmp_path):
 
 
 def test_unported_modes_raise(ckpt, tmp_path):
-    """Per-class JSON, the cascade and other archs still raise with their
-    ROADMAP item; TTA and sliding windows now serve."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.initialize_engine(ckpt, device="cpu", cascade_ckpt=ckpt)
-    with pytest.raises(NotImplementedError, match="P6"):
-        engine.process_single_image("x.raw", W, H, str(tmp_path),
-                                    per_class=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.process_batch([], W, H, [], per_class=True)
+    """Other archs still raise with their ROADMAP item (P10); the cascade
+    (P8), per-class JSON (P6), TTA and sliding windows now serve."""
     params, cfg = checkpoint.load(ckpt)
     with pytest.raises(NotImplementedError, match="P10"):
         engine.InferenceEngine(params, dataclasses.replace(cfg, arch="unetpp"),
                                device="cpu")
     eng = engine.InferenceEngine(params, cfg, device="cpu")
     raw = _write_raws(tmp_path, 1)[0]
-    for i, kw in enumerate(({"tta": True}, {"window": 256})):
+    for i, kw in enumerate(({"tta": True}, {"window": 256},
+                            {"per_class": True})):
         out = str(tmp_path / f"mode{i}")
         assert engine.process_single_image(raw, W, H, out, eng=eng, **kw)
-        assert len(_files(out)) == 5, kw
+        assert len(_files(out)) == 5 + ("per_class" in kw), kw
+    out = str(tmp_path / "batch")
+    assert engine.process_batch([raw], W, H, [out], eng=eng,
+                                per_class=True) == (1, 0)
+    assert "slice_000_classes.json" in _files(out)
+    try:
+        assert engine.initialize_engine(ckpt, log_dir=str(tmp_path / "log"),
+                                        device="cpu", cascade_ckpt=ckpt)
+        assert engine.get_engine().cascade_attached
+        assert engine.process_single_image(raw, W, H, str(tmp_path / "c"))
+    finally:
+        engine.cleanup_resources()
 
 
 @pytest.fixture()

@@ -28,7 +28,9 @@ NEW_MODULES = ("unetseg_tpu_torch.ops.dec1", "unetseg_tpu_torch.ops.halo_copy",
                "unetseg_tpu_torch.reference_twin",
                "unetseg_tpu_torch.io.contours_py",
                "unetseg_tpu_torch.utils.profiling",
-               "unetseg_tpu_torch.utils.watchdog", "unetseg_tpu_torch.bench")
+               "unetseg_tpu_torch.utils.watchdog", "unetseg_tpu_torch.bench",
+               "unetseg_tpu_torch.io.png", "unetseg_tpu_torch.io.jsonfmt",
+               "unetseg_tpu_torch.compat", "unetseg_tpu_torch.ops.confidence")
 
 
 def test_port_imports_no_jax():
@@ -37,7 +39,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n, bad, *names = proc.stdout.strip().split(" ")
-    assert int(n) >= 32 and bad == "[]", proc.stdout
+    assert int(n) >= 36 and bad == "[]", proc.stdout
     assert set(NEW_MODULES) <= set(names), proc.stdout
 
 
@@ -51,7 +53,7 @@ def test_port_sources_name_no_jax():
     for dirpath, _, files in os.walk(root):
         sources += [os.path.join(dirpath, f) for f in files
                     if f.endswith(".py")]
-    assert len(sources) >= 33
+    assert len(sources) >= 37
     assert {os.path.join(root, "ops", "dec1.py"),
             os.path.join(root, "ops", "halo_copy.py"),
             os.path.join(root, "benchmarks", "exp_bw.py"),
@@ -63,7 +65,11 @@ def test_port_sources_name_no_jax():
             os.path.join(root, "io", "contours_py.py"),
             os.path.join(root, "utils", "profiling.py"),
             os.path.join(root, "utils", "watchdog.py"),
-            os.path.join(root, "bench.py")} <= set(sources)
+            os.path.join(root, "bench.py"),
+            os.path.join(root, "io", "png.py"),
+            os.path.join(root, "io", "jsonfmt.py"),
+            os.path.join(root, "compat.py"),
+            os.path.join(root, "ops", "confidence.py")} <= set(sources)
     for path in sources:
         src = open(path).read()
         for word in ("import jax", "from jax", "import flax",

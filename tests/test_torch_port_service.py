@@ -194,9 +194,16 @@ def test_service_metrics_endpoint(svc):
 def test_service_rejects_dropped_and_unported_fields(svc):
     s, addr, tmp_path = svc
     cache = _setup_data(tmp_path, n=1)
-    r = _req(addr, {"cmd": "init", "cache": cache, "cascade": cache})
-    assert not r["ok"] and "P8" in r["error"] and "cascade" in r["error"]
+    # the cascade's init fields serve (P8): the model as its own fallback
+    r = _req(addr, {"cmd": "init", "cache": cache, "cascade": cache,
+                    "cascade_threshold": 0.0})
+    assert r["ok"], r
+    assert engine.get_engine().cascade_attached
+    r = _req(addr, {"cmd": "init", "cache": cache, "cascade": cache,
+                    "cascade_router": "vote"})
+    assert not r["ok"] and "cascade_router" in r["error"]
     assert _req(addr, {"cmd": "init", "cache": cache, "cascade": None})["ok"]
+    assert not engine.get_engine().cascade_attached
 
     r = _req(addr, _process(tmp_path, None, "o", tta=True))
     assert not r["ok"] and "tta" in r["error"]
@@ -206,10 +213,13 @@ def test_service_rejects_dropped_and_unported_fields(svc):
     assert not r["ok"] and "timeout_s" in r["error"]
     r = _req(addr, _process(tmp_path, None, "o", emitter="pil"))
     assert not r["ok"] and "emitter" in r["error"]
-    r = _req(addr, _process(tmp_path, "s0.raw", "o", per_class=True))
-    assert not r["ok"] and "P6" in r["error"], r
-    r = _req(addr, _process(tmp_path, None, "o", per_class=True))
-    assert not r["ok"] and "P6" in r["error"]
+    # per_class serves a file and a directory (P6)
+    r = _req(addr, _process(tmp_path, "s0.raw", "pc_one", per_class=True))
+    assert r["ok"], r
+    assert "s0_classes.json" in os.listdir(tmp_path / "pc_one")
+    r = _req(addr, _process(tmp_path, None, "pc_dir", per_class=True))
+    assert r["ok"] and r["processed"] == 1, r
+    assert "s0_classes.json" in os.listdir(tmp_path / "pc_dir")
     # TTA and sliding windows serve a file, and a directory request with
     # them is refused.
     for i, field in enumerate(({"tta": True}, {"window": 64},
@@ -289,7 +299,8 @@ def test_cli_repl(tmp_path, capsys):
         "help",
         "bogus",
         f"process {raw} 90 70 {out}",                 # before init
-        f"init {cache} --cascade {cache}",            # not ported: P8
+        f"init {cache} --cascade",                    # no fallback given
+        f"init {cache} --cascade {cache} 0",          # the cascade (P8)
         f"init {cache}",
         f"process --tta {raw} 90 70 {tmp_path / 'tta_out'}",
         f"process --window 64 --overlap 16 {raw} 90 70 "
@@ -297,7 +308,9 @@ def test_cli_repl(tmp_path, capsys):
         f"process --tta {tmp_path / 'data'} 90 70 {out}",     # directory
         f"process --window 64 {tmp_path / 'data'} 90 70 {out}",
         f"process --window x {raw} 90 70 {out}",      # not an integer
-        f"process --per-class {raw} 90 70 {out}",     # not ported: P6
+        # per-class JSON (P6) reaches the engine, which refuses it with
+        # device cleanup, as the JAX engine does
+        f"process --per-class {raw} 90 70 {tmp_path / 'pc_out'}",
         f"process --batched {raw} 90 70 {out}",       # directory flag
         f"process {raw} 90 70 {out}",
         f"process -r --batched --fast-emit --tier json {tmp_path / 'data'} "
@@ -311,9 +324,11 @@ def test_cli_repl(tmp_path, capsys):
     assert "Unknown command: bogus" in captured.err
     assert "Error: Engine not initialized" in captured.err
     assert "Engine initialized successfully" in captured.out
-    for item in ("--cascade", "--per-class"):
-        assert item in captured.err, item
-    assert captured.err.count("ROADMAP.md") == 2
+    assert "--cascade requires a checkpoint path" in captured.err
+    assert captured.out.count("Engine initialized successfully") == 2
+    assert "ROADMAP.md" not in captured.err
+    assert "per_class requires the host postprocess path" in captured.out
+    assert not (tmp_path / "pc_out" / "s0_classes.json").exists()
     assert captured.err.count("not supported for directory inputs") == 2
     assert "['--tta']" in captured.err and "['--window']" in captured.err
     assert "--window requires an integer" in captured.err

@@ -226,11 +226,25 @@ def test_prefetch_map_keeps_order_and_depth(depth, n):
     assert ahead == [min(depth, n - k) for k in range(1, n + 1)]
 
 
-def test_per_class_is_not_ported(models, raws, tmp_path):
-    _, params, cfg = models
-    with pytest.raises(NotImplementedError, match="P6"):
+def test_per_class_is_not_ported(models, raws, tmp_path, jax_native):
+    """Per-class JSON (P6) now serves in the study runner: the files are
+    byte-equal to the JAX runner's; without artifacts it is refused, as in
+    JAX."""
+    jparams, params, cfg = models
+    for name, run, p in (("jax", jax_pipeline.run_study, jparams),
+                         ("port", pipeline.run_study, params)):
+        kw = {} if name == "jax" else {"device": "cpu"}
+        run(p, cfg if name == "port" else SMALL, raws, W, H, batch_size=BATCH,
+            host_preprocess=True, artifacts="json",
+            out_dir=str(tmp_path / name), per_class=True, **kw)
+    names = sorted(os.listdir(tmp_path / "port"))
+    assert names == sorted(os.listdir(tmp_path / "jax"))
+    assert sum(n.endswith("_classes.json") for n in names) == N
+    for f in names:
+        assert (tmp_path / "port" / f).read_bytes() == \
+            (tmp_path / "jax" / f).read_bytes(), f
+    with pytest.raises(ValueError, match="per_class requires artifacts"):
         pipeline.run_study(params, cfg, raws, W, H, host_preprocess=True,
-                           artifacts="json", out_dir=str(tmp_path),
                            per_class=True, device="cpu")
     with pytest.raises(ValueError, match="host_preprocess"):
         pipeline.run_study(params, cfg, raws, W, H, artifacts="json",

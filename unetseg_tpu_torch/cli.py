@@ -2,9 +2,11 @@
 
 The reference's grammar (``src/main.cpp:51-196``):
 
-    init <engine_cache_path>
+    init <engine_cache_path> [--cascade <ckpt> [threshold]]
+         [--cascade-disagree <co> <fb> [max_px]]
+         [--cascade-both <co> <fb> [max_px] [margin_thr]]
     process [-r] [--batched] [--fast-emit] [--tier T] [--tta] [--window N]
-            [--overlap N] <input> <width> <height> [output_dir]
+            [--overlap N] [--per-class] <input> <width> <height> [output_dir]
     exit
     help
 
@@ -13,14 +15,16 @@ into the output directory; per-file failures do not abort the batch.
 ``--batched`` sends a directory through ``engine.process_batch``.  A file
 input takes ``--tta`` (the 8-fold dihedral ensemble) and ``--window N``
 (sliding windows at native resolution, ``--overlap N`` between them); a
-directory input with any of the three is an error.  Flags of modes not
-ported yet (``--per-class``, ``--cascade*``, ``--partitions N`` > 1) print
-an error naming their ROADMAP.md item; no flag is dropped silently.
+directory input with any of the three is an error.  ``--per-class`` adds
+``{base}_classes.json`` to either.  The ``--cascade*`` init options attach
+the confidence cascade with the JAX REPL's defaults (margin 1.5; 106
+disagreeing pixels).
 
 ``python -m unetseg_tpu_torch --serve [HOST:]PORT [--device-post]
 [--timeout S]`` starts the TCP service instead.  ``--device DEV`` (default
 ``cuda``) picks the device of either; ``--device cpu`` rehearses on a host
-without a card.
+without a card.  ``--partitions N`` > 1 is not ported yet (P9b) and prints
+an error naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -32,16 +36,17 @@ from typing import List, Optional
 from unetseg_tpu_torch import engine
 from unetseg_tpu_torch.io import raw as raw_io
 
-# Flags of unported modes -> the ROADMAP.md item that carries them.
-_UNPORTED_PROCESS = {"--per-class": "P6"}
-_UNPORTED_INIT = ("--cascade", "--cascade-disagree", "--cascade-both")
+#: Disagreeing pixels above which ``--cascade-disagree`` / ``--cascade-both``
+#: route a slice by default (the JAX REPL's: the 10%-budget point of its
+#: disagreement experiment).
+DISAGREE_PX = 106.0
 
 
 def print_usage() -> None:
     print("\nMedical Image Segmentation Tool (PyTorch/CUDA)")
     print("Commands:")
-    print("  init <engine_cache_path>      - Initialize segmentation engine")
-    print("  process [-r] [--batched] <input> <width> <height> [output_dir] - Process file/directory")
+    print("  init <engine_cache_path> [--cascade <ckpt> [threshold]] - Initialize segmentation engine")
+    print("  process [-r] [--batched] [--tta] [--window N] [--per-class] <input> <width> <height> [output_dir] - Process file/directory")
     print("  exit                          - Cleanup and exit")
     print("\nOptions:")
     print("  -r                            - Recursively process directory")
@@ -51,6 +56,10 @@ def print_usage() -> None:
     print("  --tta                         - 8-fold dihedral TTA ensemble (file input)")
     print("  --window N                    - Sliding windows of N px at native resolution (file input)")
     print("  --overlap N                   - Window overlap (default N/2 of the window)")
+    print("  --per-class                   - Also emit {base}_classes.json (per-class shapes)")
+    print("  --cascade <ckpt> [threshold]  - Route low-margin slices to a stronger model (init)")
+    print("  --cascade-disagree <co> <fb> [max_px] - Route on co-model pixel disagreement (init)")
+    print("  --cascade-both <co> <fb> [max_px] [margin_thr] - Union router: disagreement OR low margin (init)")
     print("  <input>                       - Path to image file or directory")
 
 
@@ -60,7 +69,7 @@ def _not_ported(flag: str, item: str) -> None:
 
 def _process_directory(input_path: str, width: int, height: int,
                        output_dir: str, recursive: bool, batched: bool,
-                       fast_emit: bool, tier: str) -> None:
+                       fast_emit: bool, tier: str, per_class: bool) -> None:
     print(f"Processing directory: {input_path}")
     print(f"Recursive: {'Yes' if recursive else 'No'}")
     files = raw_io.find_16bit_images(input_path, recursive)
@@ -81,12 +90,14 @@ def _process_directory(input_path: str, width: int, height: int,
     if batched:
         ok, fail = engine.process_batch(
             files, width, height, out_dirs,
-            emitter="native" if fast_emit else "cv2", tier=tier)
+            emitter="native" if fast_emit else "cv2", tier=tier,
+            per_class=per_class)
     else:
         ok = fail = 0
         for f, d in zip(files, out_dirs):
             print(f"\nProcessing: {f}")
-            if engine.process_single_image(f, width, height, d):
+            if engine.process_single_image(f, width, height, d,
+                                           per_class=per_class):
                 ok += 1
             else:
                 fail += 1
@@ -95,19 +106,65 @@ def _process_directory(input_path: str, width: int, height: int,
     print(f"  Failed: {fail} files")
 
 
+def _cascade_options(rest: List[str]) -> Optional[dict]:
+    """The cascade keywords of ``initialize_engine`` from the options after
+    the checkpoint path, with the JAX REPL's defaults and messages; None
+    (after printing the error) when they are malformed."""
+    kw = {}
+    if not rest:
+        return kw
+    flag = rest[0]
+    if flag == "--cascade":
+        if len(rest) < 2:
+            print("Error: --cascade requires a checkpoint path",
+                  file=sys.stderr)
+            return None
+        kw["cascade_ckpt"] = rest[1]
+        if len(rest) > 2:
+            try:
+                kw["cascade_threshold"] = float(rest[2])
+            except ValueError:
+                print("Error: invalid cascade threshold", file=sys.stderr)
+                return None
+        return kw
+    if flag in ("--cascade-disagree", "--cascade-both"):
+        if len(rest) < 3:
+            print(f"Error: {flag} requires <co_ckpt> <fallback_ckpt>",
+                  file=sys.stderr)
+            return None
+        router = "disagree" if flag == "--cascade-disagree" else "both"
+        kw.update(cascade_router=router, cascade_co_ckpt=rest[1],
+                  cascade_ckpt=rest[2], cascade_threshold=DISAGREE_PX)
+        if len(rest) > 3:
+            try:
+                kw["cascade_threshold"] = float(rest[3])
+            except ValueError:
+                print("Error: invalid disagreement threshold",
+                      file=sys.stderr)
+                return None
+        if router == "both" and len(rest) > 4:
+            try:
+                kw["cascade_margin_threshold"] = float(rest[4])
+            except ValueError:
+                print("Error: invalid margin threshold", file=sys.stderr)
+                return None
+        return kw
+    # a misspelled cascade flag must not initialize an engine without the
+    # cascade the operator asked for
+    print(f"Error: unknown init option {flag!r} (expected --cascade / "
+          "--cascade-disagree / --cascade-both)", file=sys.stderr)
+    return None
+
+
 def _init(parts: List[str], device: str, device_postprocess: bool) -> bool:
     if len(parts) < 2:
         print("Error: Missing engine cache path", file=sys.stderr)
         return False
-    rest = parts[2:]
-    if rest and rest[0] in _UNPORTED_INIT:
-        _not_ported(rest[0], "P8")
-        return False
-    if rest:
-        print(f"Error: unknown init option {rest[0]!r}", file=sys.stderr)
+    kw = _cascade_options(parts[2:])
+    if kw is None:
         return False
     if engine.initialize_engine(parts[1], device=device,
-                                device_postprocess=device_postprocess):
+                                device_postprocess=device_postprocess, **kw):
         print("Engine initialized successfully")
         return True
     print("Engine initialization failed", file=sys.stderr)
@@ -116,15 +173,15 @@ def _init(parts: List[str], device: str, device_postprocess: bool) -> bool:
 
 def _process(args: List[str]) -> None:
     recursive = batched = fast_emit = tier_explicit = tta = False
+    per_class = False
     window = overlap = None
     tier = "full"
     while args and args[0].startswith("-"):
         flag = args.pop(0)
-        if flag in _UNPORTED_PROCESS:
-            _not_ported(flag, _UNPORTED_PROCESS[flag])
-            return
         if flag == "-r":
             recursive = True
+        elif flag == "--per-class":
+            per_class = True
         elif flag == "--batched":
             batched = True
         elif flag == "--fast-emit":
@@ -174,7 +231,7 @@ def _process(args: List[str]) -> None:
                   "(batched path)", file=sys.stderr)
             return
         _process_directory(input_path, width, height, output_dir, recursive,
-                           batched, fast_emit, tier)
+                           batched, fast_emit, tier, per_class)
     elif os.path.isfile(input_path):
         dropped = [n for n, v in (("--batched", batched),
                                   ("--fast-emit", fast_emit),
@@ -187,7 +244,7 @@ def _process(args: List[str]) -> None:
         print(f"Processing file: {input_path}")
         if engine.process_single_image(input_path, width, height, output_dir,
                                        tta=tta, window=window,
-                                       overlap=overlap):
+                                       overlap=overlap, per_class=per_class):
             print("Processing completed")
         else:
             print("Processing failed", file=sys.stderr)

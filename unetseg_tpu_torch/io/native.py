@@ -14,7 +14,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -64,6 +64,11 @@ def load() -> ctypes.CDLL:
         lib.utpu_contour_json.argtypes = [
             _i32p, _i32p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_double, ctypes.c_double,
+            ctypes.POINTER(ctypes.c_size_t)]
+        lib.utpu_contour_json_labeled.restype = ctypes.c_void_p
+        lib.utpu_contour_json_labeled.argtypes = [
+            _i32p, _i32p, ctypes.c_int, _i32p, _i32p, ctypes.c_char_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double,
             ctypes.POINTER(ctypes.c_size_t)]
         lib.utpu_size_json.restype = ctypes.c_void_p
         lib.utpu_size_json.argtypes = [
@@ -185,6 +190,37 @@ def contour_json_bytes(contours: List[List[Tuple[int, int]]], base_name: str,
         len(contours), base_name.encode(), orig_w, orig_h, scale_x, scale_y,
         ctypes.byref(out_len))
     return _take_bytes(lib, ptr, out_len, "utpu_contour_json")
+
+
+def contours_per_class(mask: np.ndarray, classes=(1, 2)
+                       ) -> Dict[int, List[List[Tuple[int, int]]]]:
+    """Per-class EXTERNAL/SIMPLE contours of a class mask (BASELINE config
+    2): {class: contours}, each class's region traced as a 0/255 mask."""
+    return {c: extract_contours(np.where(mask == c, np.uint8(255),
+                                         np.uint8(0)))
+            for c in classes}
+
+
+def contour_json_bytes_labeled(
+        labeled: Sequence[Tuple[int, int, List[Tuple[int, int]]]],
+        base_name: str, orig_w: int, orig_h: int, scale_x: float,
+        scale_y: float) -> bytes:
+    """Per-class labelme JSON (``labeled`` = [(label, labelIndex, contour)])
+    with the reference's truncating point scaling; the bytes of
+    ``jsonfmt.contour_json_bytes_labeled`` of the scaled points."""
+    lib = load()
+    flat = [p for _, _, c in labeled for p in c]
+    offsets = np.cumsum([0] + [len(c) for _, _, c in labeled]).astype(np.int32)
+    pts = np.ascontiguousarray(np.asarray(flat, np.int32).reshape(-1, 2))
+    labels = np.asarray([lab for lab, _, _ in labeled], np.int32)
+    indices = np.asarray([idx for _, idx, _ in labeled], np.int32)
+    out_len = ctypes.c_size_t()
+    ptr = lib.utpu_contour_json_labeled(
+        pts.ctypes.data_as(_i32p), offsets.ctypes.data_as(_i32p),
+        len(labeled), labels.ctypes.data_as(_i32p),
+        indices.ctypes.data_as(_i32p), base_name.encode(), orig_w, orig_h,
+        scale_x, scale_y, ctypes.byref(out_len))
+    return _take_bytes(lib, ptr, out_len, "utpu_contour_json_labeled")
 
 
 def size_json_bytes(filename: str, orig_w: int, orig_h: int,

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from unetseg_tpu_torch.config import ModelConfig
-from unetseg_tpu_torch.engine import InferenceEngine, not_ported
+from unetseg_tpu_torch.engine import InferenceEngine, _emit_per_class_json
 from unetseg_tpu_torch.io import native, raw as raw_io
 from unetseg_tpu_torch.ops import preprocess
 from unetseg_tpu_torch.utils.profiling import StageTimer
@@ -269,16 +269,19 @@ def run_study(
     runs the bit-exact C++ resample in the loader threads and ships u8;
     otherwise the u16 RAWs are preprocessed on the device.
 
-    ``per_class=True`` (per-class JSON, P6) is not ported: it raises.
+    ``per_class=True`` (it requires ``artifacts``) also writes each
+    slice's ``{base}_classes.json`` from its decoded mask before the
+    cleanup (``engine._emit_per_class_json``), on the emitter threads.
     """
-    if per_class:
-        raise not_ported("per-class JSON", "P6")
     size = cfg.image_size
     if emitter_threads is None:
         emitter_threads = loader_threads
     if artifacts is not None and not host_preprocess:
         raise ValueError("artifacts emission requires host_preprocess=True")
     tier = _tier(artifacts, out_dir)
+    if per_class and tier is None:
+        raise ValueError("per_class requires artifacts emission "
+                         "(pass artifacts=/out_dir=)")
     # 2-bit packing quarters the device-to-host bytes; sound only when
     # every class id fits 2 bits
     pack = size % 4 == 0 and cfg.num_classes <= 4
@@ -311,10 +314,25 @@ def run_study(
         pending: List[Tuple[Callable[[], np.ndarray], object, List[int]]] = []
         emit_futures = []
 
+        def _emit_per_class(packed_or_full, paths):
+            """Per-class JSONs of a batch's decoded masks (class 1 exists
+            only before the cleanup), timed as "emit"."""
+            with STAGES.stage("emit"):
+                decoded = (_unpack_mask2(packed_or_full) if pack
+                           else packed_or_full)
+                for mask, p in zip(decoded, paths):
+                    _emit_per_class_json(
+                        mask, out_dir, os.path.splitext(os.path.basename(p))[0],
+                        width, height)
+
         def drain(entry):
             wait, u8_host, idxs = entry
             with STAGES.stage("d2h"):
                 packed_or_full = wait()[: len(idxs)]  # drop the tail's pad
+            if per_class:
+                emit_futures.append(emitters.submit(
+                    _emit_per_class, packed_or_full,
+                    [slice_paths[k] for k in idxs]))
             with STAGES.stage("cleanup"):
                 if pack:
                     masks = native.postprocess_packed_batch(packed_or_full,

@@ -4,10 +4,13 @@ The reference REPL's command surface (``src/main.cpp:62-199``) over a TCP
 socket as newline-delimited JSON: one connection, many requests, engine state
 shared across connections:
 
-  {"cmd": "init", "cache": "/path/model.ckpt"}
+  {"cmd": "init", "cache": "/path/model.ckpt",
+   "cascade": null, "cascade_threshold": 1.5,
+   "cascade_router": "margin"|"disagree"|"both", "cascade_co": null,
+   "cascade_margin_threshold": 1.5}
   {"cmd": "process", "path": "...", "width": W, "height": H,
    "output_dir": "...", "recursive": false, "tta": false, "window": null,
-   "overlap": null, "timeout_s": null,
+   "overlap": null, "per_class": false, "timeout_s": null,
    "emitter": "cv2"|"native", "tier": "full"|"mask_json"|"json"}
   {"cmd": "status"}
   {"cmd": "metrics", "n": 20}
@@ -28,10 +31,10 @@ owner); artifact writing happens in the request thread.
 
 ``tta``, ``window`` and ``overlap`` serve a single file (the 8-fold TTA
 ensemble, sliding windows at native resolution); a directory request with
-any of them is refused.  Not ported yet, and refused with the ROADMAP.md
-item that carries them: the confidence cascade (the ``cascade*`` init
-fields, P8), the partition pool (``partitions > 1``, P9b) and the process
-field ``per_class`` (the engine raises for it, P6).
+any of them is refused.  The ``cascade*`` init fields attach the confidence
+cascade (``engine.initialize_engine``); ``per_class`` adds each slice's
+``{base}_classes.json``.  Not ported yet, and refused with the ROADMAP.md
+item that carries it: the partition pool (``partitions > 1``, P9b).
 
 Start with ``python -m unetseg_tpu_torch --serve [HOST:]PORT`` or
 :func:`serve` / :class:`SegmentationService` programmatically.
@@ -51,10 +54,6 @@ from typing import Optional, Tuple
 from unetseg_tpu_torch import engine
 from unetseg_tpu_torch.io import raw as raw_io
 from unetseg_tpu_torch.utils.logger import GLOBAL_LOG
-
-#: init fields of the confidence cascade, which is not ported (P8).
-CASCADE_FIELDS = ("cascade", "cascade_threshold", "cascade_router",
-                  "cascade_co", "cascade_margin_threshold")
 
 
 class _Handler(socketserver.StreamRequestHandler):
@@ -232,14 +231,23 @@ class SegmentationService:
         cache = req.get("cache")
         if not cache:
             return {"ok": False, "error": "init requires 'cache'"}
-        cascade = [k for k in CASCADE_FIELDS if req.get(k) is not None]
-        if cascade:
-            return {"ok": False, "error": f"{cascade}: " + str(
-                engine.not_ported("the confidence cascade", "P8"))}
+        router = req.get("cascade_router", "margin")
+        if router not in engine.ROUTERS:
+            return {"ok": False, "error":
+                    "cascade_router must be 'margin', 'disagree' or 'both'"}
+        try:
+            threshold = float(req.get("cascade_threshold", 1.5))
+            margin_threshold = float(req.get("cascade_margin_threshold", 1.5))
+        except (TypeError, ValueError):
+            return {"ok": False, "error": "cascade thresholds must be numbers"}
         with self._lock:
             ok = engine.initialize_engine(
                 cache, device=self._device,
-                device_postprocess=self._device_postprocess)
+                device_postprocess=self._device_postprocess,
+                cascade_ckpt=req.get("cascade"),
+                cascade_threshold=threshold, cascade_router=router,
+                cascade_co_ckpt=req.get("cascade_co"),
+                cascade_margin_threshold=margin_threshold)
         return {"ok": True} if ok else \
             {"ok": False, "error": f"initialization failed for {cache}"}
 
