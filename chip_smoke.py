@@ -186,6 +186,27 @@ Phases, each of which fails the run (non-zero exit) on error:
    per-class JSON on phase 15's study size (300 512² RAWs at batch 32),
    three rounds after a warm one, the two modes interleaved.
 
+19. The model zoo (``zoo``, P10): UNet++ (``ModelConfig(arch="unetpp")``,
+   with and without deep supervision) and Attention U-Net at full width
+   and depth (base 64, depth 4, bf16), seeded weights with the head bias
+   centred.  Every served conv shape has a spill-free instantiation; the
+   shapes new to K1 (D = 64 at 512² with C = 128-320, C = 192, 320, 384,
+   512 at 256², 768) against the plain conv at batch 2 and timed at 32.
+   Per model on 64 768² RAWs at batch 32: ``process_batch`` and
+   ``process_single_image`` with host and with device cleanup, artifacts
+   byte-equal between the two, per forward 23 K1 + 7 K2 (UNet++) or 14 +
+   4 (Attention U-Net), no K6, 2 K3 a batch with device cleanup; masks on
+   two slices against the CPU path >= 99.5% equal (UNet++: 99%, see
+   ``ZOO_AGREEMENT``), every differing pixel within 4 ulps of
+   ``dec1.near_tie_sums``; ms per batch (CUDA events),
+   slices/s and the device time by kernel.  Attention U-Net through phases
+   13 and 14 (``tta_phase``, ``tiled_phase``, the plain-conv reference on
+   the card).  The importers: a full-width ``ModelConfig()`` torch UNet
+   with BN after every 3x3 conv, through ``.pt`` ->
+   ``params_from_torch_state_dict`` (BN folded) and through an ``.onnx``
+   written by ``write_onnx_graph`` -> ``load_onnx``: trees bit-equal,
+   both checkpoints served with bit-equal masks.
+
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -661,8 +682,10 @@ def centre_head_bias(torch, checkpoint, registry, native, raw_io, preprocess,
     with torch.inference_mode():
         logits = model(preprocess.model_input_from_u8(
             torch.from_numpy(u8).to(device))[..., None])
-    params["head"]["b"] = -logits.reshape(-1, cfg.num_classes).median(
-        0).values.cpu().numpy()
+    bias = -logits.reshape(-1, cfg.num_classes).median(0).values.cpu().numpy()
+    # UNet++ averages its heads' logits: every head takes the same bias
+    for site in params["heads"] if "heads" in params else [params["head"]]:
+        site["b"] = bias
     checkpoint.save(path, params, cfg)
 
 
@@ -965,12 +988,21 @@ def fewest_ulps(differ, tie):
 
 
 def head_sums(torch, model, x):
-    """(logits, absolute head sums), both (N, H, W, K) float32, of
-    ``UNet.forward`` on NHWC ``x``: the logits by the forward's own ops, the
+    """(logits, absolute head sums), both (N, H, W, K) float32, of the
+    model's forward on NHWC ``x``: the logits by the forward's own ops, the
     sums |c2|.|wh| + |bh| (``dec1.near_tie``'s measure) in f32, both through
-    depth-to-space for a stem-s model."""
+    depth-to-space for a stem-s model; for UNet++ both averaged over its
+    heads, as its logits are."""
     from unetseg_tpu_torch.models.unet import depth_to_space
 
+    if hasattr(model, "heads"):  # UNet++: the mean over its heads
+        feats = model.head_inputs(x)
+        logits = absum = 0
+        for head, f in zip(model.heads, feats):
+            logits = logits + head(f).float()
+            absum = absum + (f.float().abs() @ head.weight.float().abs()
+                             + head.bias.float().abs())
+        return logits / len(feats), absum / len(feats)
     c2 = model.decoder[-1](*model._trunk(x))
     logits = c2 @ model.head_weight + model.head_bias
     absum = (c2.float().abs() @ model.head_weight.float().abs()
@@ -1222,11 +1254,14 @@ def preprocess_device(torch, np, dev, card):
                                      f"differs from the CPU ({differing})")
 
 
-def tta_phase(torch, np, name, ckpt, raw_path, tmp, dev, card, ref_dev):
+def tta_phase(torch, np, name, ckpt, raw_path, tmp, dev, card, ref_dev,
+              contours=True):
     """Phase 13 for one model: ``process_single_image(tta=True)`` with host
     and with device cleanup; weight-space against activation-space masks on
     the card; the card against the plain convs on ``ref_dev``; times (the
-    first call's with the 8 variants' build)."""
+    first call's with the 8 variants' build).  ``contours``: the slice's
+    cleaned mask keeps an organ, so all five artifacts are written (phase
+    19's seeded zoo models paint speckle the cleanup clears: three)."""
     from unetseg_tpu_torch import checkpoint, engine
     from unetseg_tpu_torch.io import native, raw as raw_io
     from unetseg_tpu_torch.ops import dec1, preprocess
@@ -1250,7 +1285,8 @@ def tta_phase(torch, np, name, ckpt, raw_path, tmp, dev, card, ref_dev):
             raise AssertionError(f"{name} tta: {passes} passes, want 8")
         check_mode_launches(f"{name} tta", launches, passes, per_forward,
                             device_post)
-        check_artifacts(out, os.path.basename(raw_path)[:-len(".raw")])
+        if contours or len(names) != 3:
+            check_artifacts(out, os.path.basename(raw_path)[:-len(".raw")])
         served[device_post] = (out, names)
     if served[False][1] != served[True][1]:
         raise AssertionError(f"{name} tta: host and device cleanup wrote "
@@ -2395,6 +2431,407 @@ def per_class_phase(torch, np, dev, card):
     return total
 
 
+
+# Phase 19: the model zoo (P10).  (H, W, C, D) of UNet++'s 30 3x3 convs at
+# 512² in forward order (the backbone's 10, then X(i, j) for j = 1..4 over
+# i, conv1 over (j + 1) * c_i channels, conv2), and Attention U-Net's 18
+# (the flagship's 16 and its last level's two, which K6 does not take).
+UNETPP_CONVS = [(512, 512, 1, 64), (512, 512, 64, 64), (256, 256, 64, 128),
+                (256, 256, 128, 128), (128, 128, 128, 256),
+                (128, 128, 256, 256), (64, 64, 256, 512), (64, 64, 512, 512),
+                (32, 32, 512, 1024), (32, 32, 1024, 1024),
+                (512, 512, 128, 64), (512, 512, 64, 64),
+                (256, 256, 256, 128), (256, 256, 128, 128),
+                (128, 128, 512, 256), (128, 128, 256, 256),
+                (64, 64, 1024, 512), (64, 64, 512, 512),
+                (512, 512, 192, 64), (512, 512, 64, 64),
+                (256, 256, 384, 128), (256, 256, 128, 128),
+                (128, 128, 768, 256), (128, 128, 256, 256),
+                (512, 512, 256, 64), (512, 512, 64, 64),
+                (256, 256, 512, 128), (256, 256, 128, 128),
+                (512, 512, 320, 64), (512, 512, 64, 64)]
+ATTENTION_CONVS = FLAGSHIP_CONVS + [(512, 512, 128, 64), (512, 512, 64, 64)]
+# The shapes these two give K1 that no model served before them: D = 64 at
+# 512² (bn = 64) with C = 128 .. 320, and C = 192, 320, 384, 512 (at 256²),
+# 768; parity at ZOO_PARITY_BATCH, times at ZOO_BATCH.
+ZOO_NEW_CONVS = sorted(set(UNETPP_CONVS + ATTENTION_CONVS)
+                       - set(FLAGSHIP_CONVS))
+ZOO_PARITY_BATCH = 2
+ZOO_BATCH = 32
+N_ZOO = 64      # 768² RAWs of each model's process_batch: two batches
+# name -> ModelConfig keywords (full width and depth: base 64, depth 4)
+ZOO_MODELS = {"unetpp": {"arch": "unetpp"},
+              "unetpp_ds": {"arch": "unetpp", "deep_supervision": True},
+              "attention_unet": {"arch": "attention_unet"}}
+# The importers' model: the flagship ModelConfig() (keywords: none).
+IMPORT_KW: dict = {}
+# Card-vs-CPU mask agreement of each family (every differing pixel must
+# also lie within CPU_TIE_ULPS).  UNet++'s heads read X(0, j) after
+# 2 (j + 1) convs at full resolution: its centred seeded heads leave about
+# 0.55% of two slices' pixels differing between the card and the CPU, all
+# within 2 ulps of a tie (PERF.md §6), under the flagship's 0.995.
+ZOO_AGREEMENT = {"unetpp": 0.99, "attention_unet": CPU_AGREEMENT}
+# K1 and K2 launches per forward of each family.
+ZOO_LAUNCHES = {"unetpp": {"conv3x3_bias_act": 23,
+                           "conv3x3_bias_act_small_c": 7},
+                "attention_unet": {"conv3x3_bias_act": 14,
+                                   "conv3x3_bias_act_small_c": 4}}
+
+
+def zoo_conv_shapes(torch, F, conv, dev, card):
+    """Phase 19's conv checks: every served shape of both families has an
+    instantiation without spills; the new shapes against the plain conv
+    at batch ``ZOO_PARITY_BATCH``, then timed at ``ZOO_BATCH`` beside the
+    bound and ``F.conv2d``.  Returns {variant: max abs err}."""
+    built = {(r["bkc"], r["bn"], r["fold"]): r for r in conv.resources()}
+    plans = {}
+    for h, w, c, d in sorted(set(UNETPP_CONVS + ATTENTION_CONVS)):
+        p = conv.tile_plan(ZOO_BATCH, h, w, c + -c % 16, d)
+        r = built.get((p.bkc, p.bn, p.fold))
+        plans[f"{h}x{w}x{c}->{d}"] = [p.bkc, p.bn, p.fold]
+        if r is None or r["spill_bytes"]:
+            raise AssertionError(f"conv ({h}, {w}, {c}, {d}): instantiation "
+                                 f"{p.bkc, p.bn, p.fold} missing or spills")
+    log({"phase": "zoo_conv_plans", "bkc_bn_fold": plans})
+    worst = check_parity(torch, conv, dev, ZOO_NEW_CONVS, ZOO_PARITY_BATCH)
+    log({"phase": "zoo_conv_parity", "shapes": ZOO_NEW_CONVS,
+         "batch": ZOO_PARITY_BATCH, "max_abs_err": worst})
+    for i, shape in enumerate(ZOO_NEW_CONVS):
+        x, w, b = conv_inputs(torch, shape, ZOO_BATCH, dev, seed=600 + i)
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        k_ms = time_ms(torch, lambda: conv.conv3x3_bias_act(x, w, b), 5)
+        lib_ms = time_ms(torch, lambda: F.conv2d(xc, wc, b, padding=1), 5)
+        bound, f_ms, b_ms = conv_bound(shape, ZOO_BATCH)
+        p = conv.tile_plan(ZOO_BATCH, *shape)
+        log({"phase": "zoo_conv_time", "shape": [ZOO_BATCH, *shape],
+             "variant": variant(shape[2]), "bkc_bn_fold": [p.bkc, p.bn,
+                                                           p.fold],
+             "ms": k_ms, "library_ms": lib_ms, "bound_ms": bound,
+             "share_of_bound": bound / k_ms, "flop_ms": f_ms, "byte_ms": b_ms,
+             **card})
+        del x, w, b, xc, wc
+    torch.cuda.empty_cache()
+    return worst
+
+
+def zoo_model(torch, np, name, ckpt, paths, tmp, dev, card):
+    """Phase 19 for one model: ``process_batch`` (batch ``ZOO_BATCH``, tier
+    full) and ``process_single_image`` with host and with device cleanup,
+    launches exact, artifacts byte-equal between the two cleanups; masks on
+    two slices against the CPU path; ms per batch, slices/s and the device
+    time by kernel.  Returns the counted runs' launches by kernel."""
+    from unetseg_tpu_torch import checkpoint, engine
+    from unetseg_tpu_torch.io import native, raw as raw_io
+    from unetseg_tpu_torch.models import registry
+    from unetseg_tpu_torch.ops import dec1, preprocess
+    from unetseg_tpu_torch.ops.decode import decode_mask
+
+    params, cfg = checkpoint.load(ckpt)
+    per_forward = ZOO_LAUNCHES[cfg.arch]
+    size = 768
+    total = {}
+    outs = {}
+    for device_post in (False, True):
+        tag = "device" if device_post else "host"
+        if not engine.initialize_engine(ckpt, log_dir=os.path.join(tmp, "log"),
+                                        device_postprocess=device_post):
+            raise AssertionError(f"{name}: initialize_engine returned False")
+        eng = engine.get_engine()
+        out = os.path.join(tmp, f"{name}_{tag}")
+        single = os.path.join(tmp, f"{name}_{tag}_single")
+        reset_all_launches()
+        forwards0 = eng.forwards
+        t0 = time.perf_counter()
+        ok, failed = engine.process_batch(paths, size, size, [out] * len(paths),
+                                          batch_size=ZOO_BATCH, tier="full")
+        batch_s = time.perf_counter() - t0
+        if (ok, failed) != (len(paths), 0):
+            raise AssertionError(f"{name}: process_batch {ok} ok, "
+                                 f"{failed} failed")
+        if not engine.process_single_image(paths[3], size, size, single):
+            raise AssertionError(f"{name}: process_single_image failed")
+        launches, forwards = all_launches(), eng.forwards - forwards0
+        engine.cleanup_resources()
+        want = {k: v * forwards for k, v in per_forward.items()}
+        want.update(dec1_fused=0, cc_label=2 * forwards if device_post else 0)
+        names = os.listdir(out)
+        contours = sum(n.endswith(".json") and not n.endswith("_sizes.json")
+                       for n in names)
+        log({"phase": "zoo_main_path", "model": name, "cleanup": tag,
+             "process_batch_s": batch_s, "forwards": forwards,
+             "launches": launches, "artifacts": len(names),
+             "contour_jsons": contours, **card})
+        if launches != want or forwards < -(-len(paths) // ZOO_BATCH) + 1:
+            raise AssertionError(f"{name} {tag}: {forwards} forwards, "
+                                 f"launches {launches}, want {want}")
+        # A slice whose cleaned mask keeps no organ writes no overlay and
+        # no contour JSON: seeded UNet++ heads paint speckle that the
+        # cleanup's open and 6%-of-area rule may clear (logged, not held).
+        if len(names) < 3 * len(paths):
+            raise AssertionError(f"{name} {tag}: {len(names)} artifacts "
+                                 f"for {len(paths)} slices")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        outs[device_post] = (out, single)
+    for a, b in zip(outs[False], outs[True]):
+        names = sorted(os.listdir(a))
+        if names != sorted(os.listdir(b)):
+            raise AssertionError(f"{name}: host and device cleanup wrote "
+                                 f"different artifact sets")
+        compare_dirs(a, b, names)
+
+    # Two slices on the card and on the CPU (the plain convs).
+    eng = engine.InferenceEngine(params, cfg, dev)
+    u8_32 = torch.from_numpy(np.stack([native.preprocess_u8(np.asarray(
+        raw_io.read_raw(p, size, size)), cfg.image_size)
+        for p in paths[:ZOO_BATCH]]))
+    got = eng._masks(u8_32[:2].to(dev)).cpu()
+    cpu_model = registry.build(params, cfg, device="cpu")
+    with torch.inference_mode():
+        lg, ab = head_sums(torch, cpu_model, preprocess.model_input_from_u8(
+            u8_32[:2])[..., None])
+    want = decode_mask(lg, cfg.num_classes)
+    differ = got != want
+    agree = 1 - differ.float().mean().item()
+    ulps = fewest_ulps(differ, lambda r: dec1.near_tie_sums(lg, ab, r))
+    del cpu_model, lg, ab
+
+    u8_d = u8_32.to(dev)
+    pipe_ms = time_ms(torch, lambda: eng._pipeline(u8_d), 5)
+    prof = profile_pipeline(torch, lambda: eng._pipeline(u8_d), iters=3,
+                            top=12)
+    del prof["ops"]
+    log({"phase": "zoo_model", "model": name, "config": ZOO_MODELS[name],
+         "cpu_mask_agreement": agree, "differing_pixels_within_ulps": ulps,
+         "class_share": (torch.bincount(got.flatten().long(), minlength=3)
+                         / got.numel()).tolist(),
+         "batch": ZOO_BATCH, "ms_per_batch": pipe_ms,
+         "slices_per_s": ZOO_BATCH / pipe_ms * 1e3, "profile": prof, **card})
+    bar = ZOO_AGREEMENT[cfg.arch]
+    if agree < bar or ulps is None or ulps > CPU_TIE_ULPS:
+        raise AssertionError(f"{name}: card vs CPU masks agree on {agree} "
+                             f"(bar {bar}), differing pixels within "
+                             f"{ulps} ulps (bar {CPU_TIE_ULPS})")
+    del eng, u8_d
+    torch.cuda.empty_cache()
+    return total
+
+
+def zoo_importers(torch, np, tmp, paths, dev, card):
+    """Phase 19's importers: a full-width canonical torch UNet with BN
+    statistics after every 3x3 conv, through the ``.pt`` route
+    (``params_from_torch_state_dict``, BN folded, ``checkpoint.save``) and
+    through an ``.onnx`` the port writes (``write_onnx_graph``, live
+    BatchNormalization nodes) and ``load_onnx``; both trees bit-equal, both
+    checkpoints (head bias centred) served by ``initialize_engine`` with
+    bit-equal masks."""
+    from unetseg_tpu_torch import checkpoint, engine
+    from unetseg_tpu_torch.config import ModelConfig
+    from unetseg_tpu_torch.io import native, raw as raw_io
+    from unetseg_tpu_torch.models import import_onnx, import_torch, registry
+    from unetseg_tpu_torch.ops import preprocess
+
+    cfg = ModelConfig(**IMPORT_KW)
+    torch.manual_seed(19)
+    model = import_torch.build_torch_unet(cfg)
+    # He-normal weights, as a trained UNet's keep their scale through the
+    # depth (torch's default init shrinks it until the logits are flat)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                torch.nn.init.kaiming_normal_(m.weight, nonlinearity="relu")
+                m.bias.normal_(0.0, 0.1)
+    sd = model.state_dict()
+    sd.update({k: torch.from_numpy(v) for k, v in bn_state(np, sd, 19).items()})
+    pt = os.path.join(tmp, "unet_bn.pt")
+    torch.save(sd, pt)
+    sd = torch.load(pt, map_location="cpu")
+    pt_tree = fold_bn_tree(import_torch, checkpoint.params_from_torch_state_dict(
+        sd, cfg), sd)
+    onnx_path = os.path.join(tmp, "unet_bn.onnx")
+    import_onnx.write_onnx_graph(onnx_path, *unet_onnx_graph(
+        np, {k: v.numpy() for k, v in sd.items()}, cfg))
+    onnx_tree, onnx_cfg = import_onnx.load_onnx(onnx_path)
+    pt_leaves, onnx_leaves = tree_leaves(pt_tree), tree_leaves(onnx_tree)
+    same_tree = len(pt_leaves) == len(onnx_leaves) and all(
+        a.shape == b.shape and np.array_equal(a.view(np.uint32),
+                                              b.view(np.uint32))
+        for a, b in zip(pt_leaves, onnx_leaves))
+    inferred = ("depth", "base_channels", "in_channels", "num_classes")
+    if any(getattr(onnx_cfg, f) != getattr(cfg, f) for f in inferred):
+        raise AssertionError(f"load_onnx inferred {onnx_cfg}, want {cfg}")
+    masks = {}
+    for route, tree in (("pt", pt_tree), ("onnx", onnx_tree)):
+        ckpt = os.path.join(tmp, "models", f"imported_{route}.ckpt")
+        os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+        checkpoint.save(ckpt, tree, cfg)
+        # seeded weights paint one class: centre both heads alike
+        centre_head_bias(torch, checkpoint, registry, native, raw_io,
+                         preprocess, ckpt, paths[:4], 768, dev)
+        if not engine.initialize_engine(ckpt, log_dir=os.path.join(tmp, "log")):
+            raise AssertionError(f"initialize_engine({route}) returned False")
+        eng = engine.get_engine()
+        out = os.path.join(tmp, f"imported_{route}")
+        ok, failed = engine.process_batch(paths[:ZOO_BATCH], 768, 768,
+                                          [out] * ZOO_BATCH,
+                                          batch_size=ZOO_BATCH)
+        u8 = np.stack([native.preprocess_u8(np.asarray(raw_io.read_raw(
+            p, 768, 768)), cfg.image_size) for p in paths[:4]])
+        masks[route] = eng.to_host(eng.infer(u8))()
+        engine.cleanup_resources()
+        if (ok, failed) != (ZOO_BATCH, 0):
+            raise AssertionError(f"{route}: process_batch {ok} ok, "
+                                 f"{failed} failed")
+    log({"phase": "zoo_importers", "config": "ModelConfig() + BN",
+         "onnx_config": {"depth": onnx_cfg.depth,
+                         "base_channels": onnx_cfg.base_channels},
+         "bn_groups": sum(k.endswith("_bn.weight") for k in sd),
+         "trees_bit_equal": same_tree,
+         "masks_bit_equal": bool(np.array_equal(masks["pt"],
+                                                masks["onnx"])),
+         "class_share": np.bincount(masks["pt"].ravel(), minlength=3).tolist(),
+         **card})
+    if not same_tree or not np.array_equal(masks["pt"], masks["onnx"]):
+        raise AssertionError("the .pt and .onnx routes differ")
+
+
+def tree_leaves(tree) -> list:
+    """The arrays of a parameter tree, in key order."""
+    if isinstance(tree, dict):
+        return [a for k in sorted(tree) for a in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [a for v in tree for a in tree_leaves(v)]
+    return [tree]
+
+
+def zoo_phase(torch, np, dev, card):
+    """Phase 19: UNet++ (with and without deep supervision) and Attention
+    U-Net at full width, one TTA call and the window images for Attention
+    U-Net, and the importers.  Returns ({kernel: counted launches},
+    {variant: worst conv error})."""
+    import torch.nn.functional as F
+
+    from unetseg_tpu_torch import checkpoint, engine
+    from unetseg_tpu_torch.config import ModelConfig
+    from unetseg_tpu_torch.data import synth_slice
+    from unetseg_tpu_torch.io import native, raw as raw_io
+    from unetseg_tpu_torch.models import registry
+    from unetseg_tpu_torch.ops import conv, preprocess
+
+    worst = zoo_conv_shapes(torch, F, conv, dev, card)
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "in"))
+        paths = write_raws(raw_io, synth_slice, np, os.path.join(tmp, "in"),
+                           N_ZOO, 768)
+        ckpts = {}
+        for name, kw in ZOO_MODELS.items():
+            ckpts[name] = os.path.join(tmp, "models", f"{name}.ckpt")
+            os.makedirs(os.path.dirname(ckpts[name]), exist_ok=True)
+            checkpoint.create(ckpts[name], ModelConfig(**kw), seed=0)
+            centre_head_bias(torch, checkpoint, registry, native, raw_io,
+                             preprocess, ckpts[name], paths[:4], 768, dev)
+            for k, v in zoo_model(torch, np, name, ckpts[name], paths, tmp,
+                                  dev, card).items():
+                total[k] = total.get(k, 0) + v
+        raw_path = os.path.join(tmp, "tta_slice.raw")
+        raw_io.write_raw(raw_path, synth_slice(np.random.default_rng(42),
+                                               TTA_RAW)[0])
+        tta_phase(torch, np, "attention_unet", ckpts["attention_unet"],
+                  raw_path, tmp, dev, card, dev, contours=False)
+        cc_err = tiled_phase(torch, np, "attention_unet",
+                             ckpts["attention_unet"], tmp, dev, card, dev)
+        engine.cleanup_resources()
+        zoo_importers(torch, np, tmp, paths, dev, card)
+    torch.cuda.empty_cache()
+    return total, {**worst, "cc_label": cc_err}
+
+
+def bn_state(np, sd, seed):
+    """BatchNorm statistics after every 3x3 conv of a canonical torch UNet
+    state dict ``sd`` (``models/import_torch.py`` naming), as a BN-trained
+    UNet's ``.pt`` holds them: ``<conv>_bn.weight``, ``.bias``,
+    ``.running_mean``, ``.running_var``, float32, seeded."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, w in sd.items():
+        if key.endswith(".weight") and tuple(w.shape[2:]) == (3, 3):
+            c = w.shape[0]
+            prefix = key[:-len(".weight")] + "_bn."
+            for name, val in (("weight", rng.uniform(0.5, 1.5, c)),
+                              ("bias", rng.uniform(-0.3, 0.3, c)),
+                              ("running_mean", rng.uniform(-0.5, 0.5, c)),
+                              ("running_var", rng.uniform(0.5, 2.0, c))):
+                out[prefix + name] = val.astype(np.float32)
+    return out
+
+
+def fold_bn_tree(import_torch, params, sd):
+    """The ``.pt`` route's BatchNorm: fold each ``<conv>_bn.*`` group of
+    ``sd`` into its conv site of the JAX-layout tree ``params``
+    (``import_torch.fold_batchnorm``, eps 1e-5), in place."""
+    for key in sd:
+        if not key.endswith("_bn.weight"):
+            continue
+        prefix = key[:-len("_bn.weight")]
+        node = params
+        parts = prefix.split(".")
+        for part in parts[:-1]:
+            node = node[int(part)] if part.isdigit() else node[part]
+        bn = [sd[f"{prefix}_bn.{n}"] for n in ("weight", "bias",
+                                               "running_mean", "running_var")]
+        node[parts[-1]] = import_torch.fold_batchnorm(node[parts[-1]], *bn)
+    return params
+
+
+def unet_onnx_graph(np, sd, cfg):
+    """(nodes, tensors) of the canonical UNet of ``cfg`` with the weights
+    of the state dict ``sd`` for ``import_onnx.write_onnx_graph``: Conv
+    (-> BatchNormalization where ``sd`` holds ``<conv>_bn.*``) -> Relu
+    pairs, MaxPools, ConvTranspose + Concat decoder stages, a 1x1 head;
+    tensors under the state dict's names."""
+    k3 = {"kernel_shape": [3, 3], "pads": [1, 1, 1, 1]}
+    nodes, tensors = [], {}
+
+    def t(key):
+        tensors[key] = np.asarray(sd[key], np.float32)
+        return key
+
+    def conv(x, prefix, attrs=k3, relu=True):
+        y = prefix + ":conv"
+        nodes.append(("Conv", [x, t(prefix + ".weight"), t(prefix + ".bias")],
+                      [y], attrs))
+        if prefix + "_bn.weight" in sd:
+            nodes.append(("BatchNormalization", [y] + [
+                t(f"{prefix}_bn.{n}") for n in (
+                    "weight", "bias", "running_mean", "running_var")],
+                [y + ":bn"], {"epsilon": 1e-5}))
+            y += ":bn"
+        if relu:
+            nodes.append(("Relu", [y], [y + ":relu"], None))
+            y += ":relu"
+        return y
+
+    x, skips = "input", []
+    for i in range(cfg.depth):
+        x = conv(conv(x, f"encoder.{i}.conv1"), f"encoder.{i}.conv2")
+        skips.append(x)
+        nodes.append(("MaxPool", [x], [x + ":pool"],
+                      {"kernel_shape": [2, 2], "strides": [2, 2]}))
+        x += ":pool"
+    x = conv(conv(x, "bottleneck.conv1"), "bottleneck.conv2")
+    for i, skip in enumerate(reversed(skips)):
+        up = f"decoder.{i}.up"
+        nodes.append(("ConvTranspose", [x, t(up + ".weight"), t(up + ".bias")],
+                      [up + ":y"], {"kernel_shape": [2, 2], "strides": [2, 2]}))
+        nodes.append(("Concat", [skip, up + ":y"], [up + ":cat"], {"axis": 1}))
+        x = conv(conv(up + ":cat", f"decoder.{i}.conv1"), f"decoder.{i}.conv2")
+    conv(x, "head", {"kernel_shape": [1, 1], "pads": [0, 0, 0, 0]},
+         relu=False)
+    return nodes, tensors
+
+
 def main() -> int:
     import torch
 
@@ -2782,6 +3219,11 @@ def main() -> int:
             for k in kernels:
                 if k["name"] == name:
                     k["launches"] += n
+    torch.cuda.empty_cache()
+    zoo_launches, zoo_err = zoo_phase(torch, np, dev, card)
+    for k in kernels:
+        k["launches"] += zoo_launches.get(k["name"], 0)
+        k["max_abs_err"] = max(k["max_abs_err"], zoo_err.get(k["name"], 0))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

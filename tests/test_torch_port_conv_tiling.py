@@ -19,10 +19,11 @@ import chip_smoke
 from unetseg_tpu_torch.ops import conv
 
 # (H, W, C, D) of every shape the card sees: slim4, the flagship (C = 1 and
-# a stem-2 C = 4 reach the kernel padded to 16), the extra and edge parity
-# shapes of chip_smoke.py.
+# a stem-2 C = 4 reach the kernel padded to 16), UNet++ and Attention U-Net
+# at full width, the extra and edge parity shapes of chip_smoke.py.
 SHAPES = sorted({(h, w, c + -c % 16, d) for h, w, c, d in (
     chip_smoke.SLIM4_CONVS + chip_smoke.FLAGSHIP_CONVS
+    + chip_smoke.UNETPP_CONVS + chip_smoke.ATTENTION_CONVS
     + [chip_smoke.STEM2_CONV] + chip_smoke.EXTRA_CONVS
     + chip_smoke.EDGE_CONVS)})
 BATCHES = (1, 3, 32, 128)
@@ -127,6 +128,13 @@ def test_tiles_cover_each_output_once(shape):
     (2, 3, 100, 64, 256),  # fold at wt = 128, bn = 256
     (2, 5, 40, 128, 80),   # fold at wt = 64, rt = 2, ragged W; two chunks
     (2, 6, 20, 192, 272),  # no fold (wt = 32), bn = 256, D ragged
+    # the model zoo's new K1 shapes, cut in H and W: D = 64 (bn = 64) with
+    # the fold at wt = 128 over 3 and 5 64-channel slices (C = 192, 320);
+    # C = 384 and 768 at bn = 128 and 256
+    (1, 3, 130, 192, 64),
+    (1, 2, 128, 320, 64),
+    (1, 5, 70, 384, 128),
+    (1, 4, 12, 768, 256),
 ], ids=str)
 def test_emulated_plan_equals_plain(shape, relu):
     B, H, W, C, D = shape

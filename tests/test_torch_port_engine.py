@@ -127,19 +127,33 @@ def test_entry_points_default_to_cuda_and_fail_without_it(ckpt, tmp_path):
 
 
 def test_unported_modes_raise(ckpt, tmp_path):
-    """Other archs still raise with their ROADMAP item (P10); the cascade
-    (P8), per-class JSON (P6), TTA and sliding windows now serve."""
+    """The quantized arch still raises with its ROADMAP item (P11); the
+    other archs (P10), the cascade (P8), per-class JSON (P6), TTA and
+    sliding windows now serve."""
     params, cfg = checkpoint.load(ckpt)
-    with pytest.raises(NotImplementedError, match="P10"):
-        engine.InferenceEngine(params, dataclasses.replace(cfg, arch="unetpp"),
-                               device="cpu")
-    eng = engine.InferenceEngine(params, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="P11"):
+        engine.InferenceEngine(params, dataclasses.replace(
+            cfg, arch="unet_w8a8"), device="cpu")
     raw = _write_raws(tmp_path, 1)[0]
-    for i, kw in enumerate(({"tta": True}, {"window": 256},
-                            {"per_class": True})):
-        out = str(tmp_path / f"mode{i}")
-        assert engine.process_single_image(raw, W, H, out, eng=eng, **kw)
-        assert len(_files(out)) == 5 + ("per_class" in kw), kw
+    for arch in ("unet", "unetpp", "attention_unet"):
+        if arch == "unet":
+            eng = engine.InferenceEngine(params, cfg, device="cpu")
+        else:
+            zoo_cfg = dataclasses.replace(cfg, arch=arch)
+            zoo_ckpt = str(tmp_path / f"{arch}.ckpt")
+            checkpoint.create(zoo_ckpt, zoo_cfg, seed=0)
+            eng = engine.InferenceEngine(*checkpoint.load(zoo_ckpt),
+                                         device="cpu")
+            assert eng.cfg.arch == arch
+        for i, kw in enumerate(({}, {"tta": True}, {"window": 256},
+                                {"per_class": True})):
+            out = str(tmp_path / f"{arch}_mode{i}")
+            assert engine.process_single_image(raw, W, H, out, eng=eng, **kw)
+            # three artifacts at least; the seeded heads of the new
+            # families may leave no contour to draw
+            assert len(_files(out)) >= 3 + ("per_class" in kw), kw
+            if arch == "unet":
+                assert len(_files(out)) == 5 + ("per_class" in kw), kw
     out = str(tmp_path / "batch")
     assert engine.process_batch([raw], W, H, [out], eng=eng,
                                 per_class=True) == (1, 0)

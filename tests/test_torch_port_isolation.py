@@ -30,7 +30,11 @@ NEW_MODULES = ("unetseg_tpu_torch.ops.dec1", "unetseg_tpu_torch.ops.halo_copy",
                "unetseg_tpu_torch.utils.profiling",
                "unetseg_tpu_torch.utils.watchdog", "unetseg_tpu_torch.bench",
                "unetseg_tpu_torch.io.png", "unetseg_tpu_torch.io.jsonfmt",
-               "unetseg_tpu_torch.compat", "unetseg_tpu_torch.ops.confidence")
+               "unetseg_tpu_torch.compat", "unetseg_tpu_torch.ops.confidence",
+               "unetseg_tpu_torch.models.attention_unet",
+               "unetseg_tpu_torch.models.unetpp",
+               "unetseg_tpu_torch.models.import_torch",
+               "unetseg_tpu_torch.models.import_onnx")
 
 
 def test_port_imports_no_jax():
@@ -39,7 +43,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n, bad, *names = proc.stdout.strip().split(" ")
-    assert int(n) >= 36 and bad == "[]", proc.stdout
+    assert int(n) >= 40 and bad == "[]", proc.stdout
     assert set(NEW_MODULES) <= set(names), proc.stdout
 
 
@@ -53,7 +57,7 @@ def test_port_sources_name_no_jax():
     for dirpath, _, files in os.walk(root):
         sources += [os.path.join(dirpath, f) for f in files
                     if f.endswith(".py")]
-    assert len(sources) >= 37
+    assert len(sources) >= 41
     assert {os.path.join(root, "ops", "dec1.py"),
             os.path.join(root, "ops", "halo_copy.py"),
             os.path.join(root, "benchmarks", "exp_bw.py"),
@@ -69,7 +73,11 @@ def test_port_sources_name_no_jax():
             os.path.join(root, "io", "png.py"),
             os.path.join(root, "io", "jsonfmt.py"),
             os.path.join(root, "compat.py"),
-            os.path.join(root, "ops", "confidence.py")} <= set(sources)
+            os.path.join(root, "ops", "confidence.py"),
+            os.path.join(root, "models", "attention_unet.py"),
+            os.path.join(root, "models", "unetpp.py"),
+            os.path.join(root, "models", "import_torch.py"),
+            os.path.join(root, "models", "import_onnx.py")} <= set(sources)
     for path in sources:
         src = open(path).read()
         for word in ("import jax", "from jax", "import flax",

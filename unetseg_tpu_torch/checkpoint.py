@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from unetseg_tpu_torch.config import ModelConfig
-from unetseg_tpu_torch.models import unet
+from unetseg_tpu_torch.models.import_torch import convert_state_dict
 
 MAGIC = b"UTPUCKPT1\n"
 _EXT_NDARRAY = 1  # flax.serialization._MsgpackExtType.ndarray
@@ -198,7 +198,7 @@ def packb(value: Any) -> bytes:
 
 def save(path: str, params: dict, cfg: ModelConfig) -> None:
     """Write ``params`` (a pytree of numpy arrays, as :func:`load` returns
-    and ``models.unet.init`` builds) and ``cfg`` to ``path`` in the JAX
+    and ``models.registry.init`` builds) and ``cfg`` to ``path`` in the JAX
     package's format (``unetseg_tpu/checkpoint.py::save``), byte for byte
     what flax writes.  The file appears only when complete."""
     payload = packb({"config": dataclasses.asdict(cfg), "params": params})
@@ -210,10 +210,13 @@ def save(path: str, params: dict, cfg: ModelConfig) -> None:
 
 
 def create(path: str, cfg: ModelConfig = ModelConfig(), seed: int = 0) -> None:
-    """Write a fresh He-normal checkpoint for ``cfg`` drawn from a
-    ``torch.Generator`` seeded with ``seed`` (``unetseg_tpu/checkpoint.py::
-    create``; the weights differ from JAX's for the same seed)."""
-    save(path, unet.init(cfg, torch.Generator().manual_seed(seed)), cfg)
+    """Write a fresh He-normal checkpoint for ``cfg`` (any registered arch)
+    drawn from a ``torch.Generator`` seeded with ``seed``
+    (``unetseg_tpu/checkpoint.py::create``; the weights differ from JAX's
+    for the same seed)."""
+    from unetseg_tpu_torch.models import registry  # it imports this module
+
+    save(path, registry.init(cfg, torch.Generator().manual_seed(seed)), cfg)
 
 
 def load(path: str) -> Tuple[dict, ModelConfig]:
@@ -277,34 +280,49 @@ def up_weight_from_hwio(w: np.ndarray) -> np.ndarray:
 
 
 def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
-    """The JAX UNet param pytree (numpy) -> the port's state dict (CPU
-    tensors, stored dtype kept).
+    """A JAX param pytree (numpy) of any float family -> the port's state
+    dict (CPU tensors, stored dtype kept).
+
+    Every dict holding a rank-4 ``w`` is a conv site, named by its path in
+    the tree (``decoder.0.att_x``, ``nodes.0_1.up``, ``heads.2``); the
+    modules of ``models/`` carry the same names.  By kernel size:
 
     * 3x3 convs keep HWIO ``(3, 3, C, D)``; contiguous, that is the
       ``(9*C, D)`` operand the conv kernel reads.
-    * The up-conv becomes a matmul weight (:func:`up_weight_from_hwio`).
-    * The 1x1 head ``(1, 1, C, O)`` becomes ``(C, O)``.
-    """
-    def t(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a))  # an owned, writable copy
+    * 2x2 up-convs become matmul weights (:func:`up_weight_from_hwio`).
+    * 1x1 convs ``(1, 1, C, O)`` become ``(C, O)`` products.
 
+    The top-level ``head`` of the UNet and Attention U-Net trees is the
+    modules' ``head_weight`` / ``head_bias``.
+    """
     state: Dict[str, torch.Tensor] = {}
 
-    def conv(prefix, p):
-        state[prefix + ".weight"] = t(p["w"])
-        state[prefix + ".bias"] = t(p["b"])
+    def walk(node, path: str) -> None:
+        if isinstance(node, dict) and getattr(node.get("w"), "ndim", 0) == 4:
+            w = np.asarray(node["w"])
+            if w.shape[0] == 2:
+                w = up_weight_from_hwio(w)
+            elif w.shape[0] == 1:
+                w = w.reshape(w.shape[2], w.shape[3])
+            prefix = "head_" if path == "head" else path + "."
+            # owned, writable copies
+            state[prefix + "weight"] = torch.from_numpy(np.array(w))
+            state[prefix + "bias"] = torch.from_numpy(np.array(node["b"]))
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}.{k}" if path else k)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}.{i}")
 
-    for i, stage in enumerate(tree["encoder"]):
-        conv(f"encoder.{i}.conv1", stage["conv1"])
-        conv(f"encoder.{i}.conv2", stage["conv2"])
-    conv("bottleneck.conv1", tree["bottleneck"]["conv1"])
-    conv("bottleneck.conv2", tree["bottleneck"]["conv2"])
-    for i, stage in enumerate(tree["decoder"]):
-        state[f"decoder.{i}.up.weight"] = t(up_weight_from_hwio(stage["up"]["w"]))
-        state[f"decoder.{i}.up.bias"] = t(stage["up"]["b"])
-        conv(f"decoder.{i}.conv1", stage["conv1"])
-        conv(f"decoder.{i}.conv2", stage["conv2"])
-    hw = np.asarray(tree["head"]["w"])
-    state["head_weight"] = t(hw.reshape(hw.shape[2], hw.shape[3]))
-    state["head_bias"] = t(tree["head"]["b"])
+    walk(tree, "")
     return state
+
+
+def params_from_torch_state_dict(state_dict, cfg: ModelConfig = ModelConfig()
+                                 ) -> dict:
+    """Weights of the canonical PyTorch UNet layout (``encoder.{i}.conv1``
+    ..., ``head``; ``models/import_torch.py``) -> the JAX-layout tree as
+    float32 numpy, ready for :func:`save` (``unetseg_tpu/checkpoint.py::
+    params_from_torch_state_dict``)."""
+    return convert_state_dict(state_dict, cfg)

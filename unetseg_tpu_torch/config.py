@@ -33,7 +33,7 @@ class ModelConfig:
     # Space-to-depth stem factor: the 512²x1 input becomes (512/stem)² x
     # stem² before the first conv, and a depth-to-space head restores 512².
     stem: int = 1
-    # Model family; the port serves "unet" only (models/registry.py).
+    # Model family: "unet", "unetpp" or "attention_unet" (models/registry.py).
     arch: str = "unet"
     deep_supervision: bool = False
 

@@ -9,6 +9,9 @@ engine serves, runs a stem-1 model's last decoder level, head and argmax in
 one kernel instead (``ops.dec1.dec1_fused_masks``, K6) when K6 is built for
 its width and classes; the route is fixed from the config when the model is
 built (:attr:`UNet.route`), the same on the CPU and on the card.
+The other float families reuse these modules: ``models/attention_unet.py``
+subclasses :class:`UNet` with a gated decoder stage, ``models/unetpp.py``
+nests :class:`DoubleConv`, :class:`UpConv` and :class:`Conv1x1` nodes.
 
 The weights are cast once to the compute dtype when the module is moved
 (``module.to(dtype=...)``); JAX casts them per call, and both round each
@@ -93,6 +96,20 @@ class UpConv(nn.Module):
         return up_conv(x, self.weight, self.bias)
 
 
+class Conv1x1(nn.Module):
+    """1x1 conv as a product: (..., C) @ (C, O) + (O,), in the inputs'
+    dtype, rounded after the product and again after the bias add, as
+    ``lax.conv`` followed by the bias add in JAX (unet.py:53-62)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cin, cout), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.weight + self.bias
+
+
 class DecoderStage(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -107,16 +124,22 @@ class DecoderStage(nn.Module):
 
 def last_level_route(cfg: ModelConfig) -> str:
     """How :meth:`UNet.masks` runs the last decoder level, head and argmax:
-    "fused" in K6, for stem-1 models whose width and class count K6 is
-    built for (``ops.dec1.kernel_takes``); else "unfused": the level's
-    convs in the conv kernel, the head a plain product, then the argmax."""
-    if cfg.stem == 1 and kernel_takes(cfg.base_channels, cfg.num_classes):
+    "fused" in K6, for plain (``arch="unet"``) stem-1 models whose width
+    and class count K6 is built for (``ops.dec1.kernel_takes``); else
+    "unfused": the level's convs in the conv kernel, the head a plain
+    product, then the argmax.  K6 computes the plain UNet's level only, so
+    the other families always take the unfused route."""
+    if cfg.arch == "unet" and cfg.stem == 1 and \
+            kernel_takes(cfg.base_channels, cfg.num_classes):
         return "fused"
     return "unfused"
 
 
 class UNet(nn.Module):
     """NHWC input in [0, 1] -> float32 logits (N, H, W, num_classes)."""
+
+    #: The decoder's stage: called as ``stage(x, skip)``.
+    decoder_stage = DecoderStage
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -132,7 +155,7 @@ class UNet(nn.Module):
         self.decoder = nn.ModuleList()
         cin = bottleneck
         for cout in reversed(chans):
-            self.decoder.append(DecoderStage(cin, cout))
+            self.decoder.append(self.decoder_stage(cin, cout))
             cin = cout
         self.route = last_level_route(cfg)
         n_out = cfg.num_classes * cfg.stem * cfg.stem
@@ -220,3 +243,12 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
     params["head"] = _conv_init(generator, 1, 1, chans[0],
                                 cfg.num_classes * cfg.stem * cfg.stem)
     return params
+
+
+def param_count(params) -> int:
+    """Number of weights in a parameter tree of any family."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return int(np.asarray(params).size)
