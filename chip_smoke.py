@@ -6,13 +6,14 @@
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. Device: the card's name and power limit (nvidia-smi); no CUDA -> exit 1.
-2. Build: all four kernel sources (conv, CCL, fused last decoder level,
-   halo copy; nvcc, sm_90a), K6's phase-stamped build and the host C++
-   library, all at once; then
-   the conv kernel's, K6's and the CCL passes' registers, spills and
+2. Build: all five kernel sources (conv, CCL, fused last decoder level,
+   halo copy, the int8 conv K7; nvcc, sm_90a), K6's phase-stamped build
+   and the host C++ library, all at once; then
+   the conv kernel's, K6's, the CCL passes' and K7's registers, spills and
    shared memory per instantiation, as ``nvcc -Xptxas -v`` reported them,
    one line each (``conv_resources``, ``dec1_resources``,
-   ``cc_resources``); a spill in K6 or K3 fails the run.
+   ``cc_resources``, ``s8_resources``); a spill in K6, K3 or K7 fails the
+   run.
 3. Kernel parity: the conv kernel against its plain PyTorch version on
    slim4's ten conv shapes at batch 8, plus two ragged shapes, and on the
    tiling's edge cases at batch 3 (several column tiles with a remainder,
@@ -206,6 +207,33 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``params_from_torch_state_dict`` (BN folded) and through an ``.onnx``
    written by ``write_onnx_graph`` -> ``load_onnx``: trees bit-equal,
    both checkpoints served with bit-equal masks.
+
+20. The partition pool and the dp engine (``partitions``, P9b), for slim4
+   and the seeded flagship: ``make_partitioned_engines(4)`` on the one card
+   gives one engine; the TCP service with ``partitions=4`` pools the
+   global engine itself (one card) and answers 8
+   concurrent clients (one single-file ``process`` each), every artifact
+   byte-equal to ``process_batch``'s, launches exact; an engine over
+   ``["cuda:0", "cuda:0"]`` splits a batch of 128 in two parts, masks
+   bit-equal to the one-device engine's (ms per batch of both); its TTA is
+   the mesh weight-space form, bit-equal to the sequential form; launches
+   exact.
+21. The w8a8 slim4 (``w8a8``, P11): K7 (``csrc/conv3x3_s8.cu``) bit-equal
+   to its plain version on phase 3's shapes; ``quantize_checkpoint`` on
+   the card from models/flagship_slim4.ckpt, calibrated on two
+   ``training_batch(default_rng(77), 8)`` batches; the w8a8 and the bf16
+   slim4 pipelines at batch 128 with host and device cleanup, in turns
+   (ms per batch, slices/s), the w8a8 device time by kernel and idle
+   share; K7 per shape against its bound (int8 operations at 1,979 TOP/s,
+   or bytes at 3.35 TB/s), im2col + ``torch._int_mm`` (``library_ms``), its
+   plain version and K1/K2 on the bf16 shapes; card vs CPU masks on two
+   slices >= 99.9% equal; on bench.py's pool (seed 991, 32 slices) the
+   polygon IoU against the float parent (bf16 on the card) >= 0.999, the
+   module's contract; every entry point once (``process_batch``,
+   ``process_single_image`` plain, TTA in activation space and windows,
+   ``run_study``, ``run_study_device_resident`` with device cleanup, the
+   service with ``partitions=4``), 10 K7 and no K1/K2/K6 launch per
+   forward, artifacts byte-equal to ``process_batch``'s.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1342,7 +1370,9 @@ def tta_phase(torch, np, name, ckpt, raw_path, tmp, dev, card, ref_dev,
 
     u8_1 = u8_d[None]
     with torch.inference_mode():
-        times = {"weight_space_ms": time_ms(torch, lambda: eng._tta(u8_1), 10),
+        ensemble = eng._tta[1]
+        times = {"weight_space_ms": time_ms(torch, lambda: ensemble(u8_1),
+                                            10),
                  "activation_space_ms": time_ms(torch, lambda: act_pipe(u8_d),
                                                 10),
                  "plain_slice_ms": time_ms(torch, lambda: eng._pipeline(u8_1),
@@ -1851,7 +1881,7 @@ def router_masks(torch, eng, u8_dev):
         x = preprocess.model_input_from_u8(u8_dev)[..., None]
         student = (eng.model.masks(x) if eng.cascade_router == "disagree"
                    else decode_mask(eng.model(x), eng.cfg.num_classes))
-        co = eng._cascade_co_model.masks(x)
+        co = eng._cascade_co_models[0].masks(x)
     return student.cpu().numpy(), co.cpu().numpy()
 
 
@@ -2832,6 +2862,466 @@ def unet_onnx_graph(np, sd, cfg):
     return nodes, tensors
 
 
+# Phase 20: the partition pool and the dp engine (P9b), for slim4 and the
+# seeded flagship: the service's concurrent clients, the batch split over a
+# device list that repeats the one card (the split is by position), and
+# the mesh weight-space TTA.
+N_CLIENTS = 8
+DP_DEVICES = ("cuda:0", "cuda:0")
+DP_BATCH = 128
+# Phase 21: the w8a8 slim4 (P11).  Calibration as benchmarks/
+# quantize_slim.py (two training batches of 8, seed 77); the kernel's
+# parity shapes are phase 3's; the accuracy pool is bench.py's (seed 991,
+# 32 slices); the pipeline is timed at batch 128.
+W8A8_CALIB = (77, 2, 8)
+W8A8_BATCH = 128
+W8A8_CPU_SLICES = 2
+W8A8_CPU_AGREEMENT = 0.999
+# quantize.py's accuracy contract: polygon IoU against the float parent.
+W8A8_POLYGON_IOU = 0.999
+N_W8A8 = 32      # 768² RAWs of the entry points
+K7_SOURCE = "unetseg_tpu_torch/csrc/conv3x3_s8.cu"
+K7_REPLACES = ("unetseg_tpu/quantize.py:223 (_conv_w8a8: "
+               "lax.conv_general_dilated; no Pallas kernel)")
+PEAK_INT8_OPS = 1979e12
+# K7 launches of one w8a8 slim4 forward: every 3x3 conv.
+W8A8_LAUNCHES = {"conv3x3_s8": 10, "conv3x3_bias_act": 0,
+                 "conv3x3_bias_act_small_c": 0, "dec1_fused": 0}
+
+
+def pool_clients(service, addr, paths, size, tmp, tag):
+    """``N_CLIENTS`` concurrent clients, one single-file ``process`` each;
+    returns their output dirs."""
+    def one(i):
+        out = os.path.join(tmp, f"{tag}_client{i}")
+        resp = service.request(addr, {
+            "cmd": "process", "path": paths[i], "width": size,
+            "height": size, "output_dir": out}, timeout=300)
+        if not resp.get("ok"):
+            raise AssertionError(f"{tag} client {i}: {resp}")
+        return out
+
+    with ThreadPoolExecutor(max_workers=N_CLIENTS) as pool:
+        return list(pool.map(one, range(N_CLIENTS)))
+
+
+def partitions_model(torch, np, name, ckpt, paths, tmp, dev, card):
+    """Phase 20 for one model; returns the counted runs' launches."""
+    from unetseg_tpu_torch import checkpoint, engine, service
+    from unetseg_tpu_torch.io import native, raw as raw_io
+
+    size, per_fwd = 768, MASKS_LAUNCHES[name]
+    total: dict = {}
+    # make_partitioned_engines on one card: one engine
+    if not engine.initialize_engine(ckpt, log_dir=os.path.join(tmp, "log"),
+                                    device=dev):
+        raise AssertionError(f"{name}: initialize_engine returned False")
+    parts = engine.make_partitioned_engines(4)
+    if len(parts) != 1 or parts[0].devices != [dev]:
+        raise AssertionError(f"{name}: make_partitioned_engines(4) on one "
+                             f"card gave {[p.devices for p in parts]}")
+    ref = os.path.join(tmp, f"{name}_ref")
+    engine.process_batch(paths[:N_CLIENTS], size, size,
+                         [ref] * N_CLIENTS, batch_size=N_CLIENTS)
+    engine.cleanup_resources()
+
+    # the service with --partitions 4: 8 concurrent clients
+    svc = service.SegmentationService(port=0, partitions=4, device=str(dev))
+    addr = svc.start()
+    try:
+        reset_all_launches()
+        if not service.request(addr, {"cmd": "init", "cache": ckpt},
+                               timeout=300).get("ok"):
+            raise AssertionError(f"{name}: service init failed")
+        base, pool = engine.get_engine(), list(svc._engines)
+        t0 = time.perf_counter()
+        outs = pool_clients(service, addr, paths, size, tmp, name)
+        clients_s = time.perf_counter() - t0
+        st = service.request(addr, {"cmd": "status"}, timeout=60)
+        launches = all_launches()
+        forwards = base.forwards
+        service.request(addr, {"cmd": "shutdown"}, timeout=60)
+    finally:
+        svc.stop()
+    want = {k: v * forwards for k, v in per_fwd.items()}
+    want["cc_label"] = 0
+    log({"phase": "partitions_service", "model": name, "pool": len(pool),
+         "clients": N_CLIENTS, "clients_s": clients_s, "status": st,
+         "forwards": forwards, "launches": launches})
+    if len(pool) != 1 or pool[0] is not base or st["partitions"] != 4 or \
+            st["processed"] != N_CLIENTS or launches != want:
+        raise AssertionError(f"{name} pool service: pool {len(pool)}, "
+                             f"status {st}, launches {launches} want {want}")
+    for p, out in zip(paths, outs):
+        base_name = os.path.basename(p)[:-len(".raw")]
+        names = sorted(f for f in os.listdir(out))
+        if names != sorted(f for f in os.listdir(ref)
+                           if f.startswith(base_name + "_")
+                           or f == base_name + ".json"):
+            raise AssertionError(f"{name}: client artifacts {names}")
+        compare_dirs(ref, out, names)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+    # the dp engine over the card twice, at batch DP_BATCH
+    params, cfg = checkpoint.load(ckpt)
+    u8 = torch.from_numpy(np.stack([native.preprocess_u8(np.asarray(
+        raw_io.read_raw(p, size, size)), 512) for p in
+        (paths * (DP_BATCH // len(paths) + 1))[:DP_BATCH]])).to(dev)
+    multi = engine.InferenceEngine(params, cfg, devices=list(DP_DEVICES))
+    single = engine.InferenceEngine(params, cfg, device=dev)
+    reset_all_launches()
+    got = multi._masks(u8)
+    want_masks = single._masks(u8)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    forwards = multi.forwards + single.forwards
+    equal = torch.equal(got, want_masks)
+    multi_ms = time_ms(torch, lambda: multi._masks(u8), 5)
+    single_ms = time_ms(torch, lambda: single._masks(u8), 5)
+    want = {k: v * forwards for k, v in per_fwd.items()}
+    want["cc_label"] = 0
+    log({"phase": "partitions_dp", "model": name, "devices": DP_DEVICES,
+         "batch": DP_BATCH, "bit_equal": equal, "forwards": forwards,
+         "launches": launches, "dp_ms_per_batch": multi_ms,
+         "single_ms_per_batch": single_ms, **card})
+    if not equal:
+        raise AssertionError(f"{name}: the dp engine's masks differ from the "
+                             f"one-device engine's")
+    if forwards != len(DP_DEVICES) + 1 or launches != want:
+        raise AssertionError(f"{name} dp: {forwards} forwards, launches "
+                             f"{launches}, want {want}")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+    # the mesh weight-space TTA against the sequential form
+    u8_2d = u8[0].cpu().numpy()
+    reset_all_launches()
+    got = multi.infer_tta(u8_2d)
+    want_masks = single.infer_tta(u8_2d)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    tta_fwd = convs_per_forward(multi.model)
+    want = {k: v * 2 * 8 for k, v in tta_fwd.items()}
+    want.update(dec1_fused=0, cc_label=0)
+    equal = torch.equal(got, want_masks)
+    log({"phase": "partitions_tta", "model": name, "devices": DP_DEVICES,
+         "form": multi._tta[0], "bit_equal": equal, "launches": launches})
+    if not equal or multi._tta[0] != "ws" or launches != want:
+        raise AssertionError(f"{name} mesh TTA: equal {equal}, launches "
+                             f"{launches}, want {want}")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def partitions_phase(torch, np, dev, card):
+    """Phase 20 for slim4 and the seeded flagship; returns launches."""
+    from unetseg_tpu_torch.data import synth_slice
+    from unetseg_tpu_torch.io import raw as raw_io
+
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        in_dir = os.path.join(tmp, "in")
+        os.makedirs(in_dir)
+        paths = write_raws(raw_io, synth_slice, np, in_dir, N_CLIENTS, 768)
+        flag_ckpt, _ = flagship_checkpoint(torch, np,
+                                           os.path.join(tmp, "flagship"), dev)
+        for name, ckpt in (("slim4", CKPT), ("flagship", flag_ckpt)):
+            for k, v in partitions_model(torch, np, name, ckpt, paths, tmp,
+                                         dev, card).items():
+                total[k] = total.get(k, 0) + v
+            torch.cuda.empty_cache()
+    return total
+
+
+def s8_inputs(torch, shape, batch, device, seed):
+    """Random int8 operands of K7 (K-major weights), positive scales."""
+    h, w, c, d = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(-127, 128, (batch, h, w, c), generator=g,
+                      device=device, dtype=torch.int8)
+    wk = torch.randint(-127, 128, (3, 3, d, c), generator=g, device=device,
+                       dtype=torch.int8)
+    scale = torch.rand((d,), generator=g, device=device) * 1e-3 + 1e-5
+    bias = torch.randn((d,), generator=g, device=device)
+    return x, wk, scale, bias
+
+
+def s8_bound(shape, batch):
+    """(bound ms, operations ms, bytes ms) of one K7 call: each input read
+    once (int8 x and w, f32 scale and bias), the f32 output written once,
+    against the int8 tensor-core peak."""
+    h, w, c, d = shape
+    m = batch * h * w
+    ops = 2.0 * m * d * 9 * c
+    nbytes = m * c + 9 * c * d + 8 * d + 4 * m * d
+    o_ms = ops / PEAK_INT8_OPS * 1e3
+    b_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    return max(o_ms, b_ms), o_ms, b_ms
+
+
+def s8_library(torch, F, quantize, conv_s8, x, wk, scale, bias):
+    """The library route to K7's function: im2col of the int8 input (nine
+    shifted views), one ``torch._int_mm`` (cuBLASLt), the f32 epilogue."""
+    b, h, w, c = x.shape
+    d = wk.shape[2]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([xp[:, dy:dy + h, dx:dx + w] for dy in range(3)
+                      for dx in range(3)], dim=-1).reshape(-1, 9 * c)
+    wm = wk.permute(0, 1, 3, 2).reshape(9 * c, d)
+    acc = quantize.int8_matmul(cols, wm).reshape(b, h, w, d)
+    return conv_s8.dequant(acc, scale, bias, relu=True)
+
+
+def w8a8_phase(torch, np, F, dev, card):
+    """Phase 21: the w8a8 slim4.  Returns (K7's kernels-line entry, the
+    counted runs' launches of the other kernels)."""
+    from unetseg_tpu_torch import checkpoint, engine, metrics, quantize, \
+        service
+    from unetseg_tpu_torch.data import synth_batch, synth_slice, \
+        training_batch
+    from unetseg_tpu_torch.io import native, raw as raw_io
+    from unetseg_tpu_torch.models import registry
+    from unetseg_tpu_torch.ops import conv, conv_s8, decode
+    from unetseg_tpu_torch.ops.preprocess import preprocess_oracle_u8
+    from unetseg_tpu_torch.parallel import pipeline
+
+    # K7 against its plain version, bit for bit
+    err = 0.0
+    for batch, shapes in ((8, SLIM4_CONVS + EXTRA_CONVS),
+                          (EDGE_BATCH, EDGE_CONVS)):
+        for i, shape in enumerate(shapes):
+            ops = s8_inputs(torch, shape, batch, dev, 500 + i)
+            for relu in (True, False):
+                got = conv_s8.conv3x3_s8(*ops, relu=relu)
+                want = conv_s8.conv3x3_s8_plain(*ops, relu=relu)
+                torch.cuda.synchronize()
+                e = (got - want).abs().max().item()
+                log({"phase": "k7_parity", "shape": [batch, *shape],
+                     "relu": relu, "max_abs_err": e,
+                     "bit_equal": torch.equal(got, want)})
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K7 {shape}: differs from its "
+                                         f"plain version by {e}")
+                err = max(err, e)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # quantize on the card
+        seed, n_batches, n = W8A8_CALIB
+        rng = np.random.default_rng(seed)
+        calib = [training_batch(rng, n)[0] for _ in range(n_batches)]
+        q_ckpt = os.path.join(tmp, "models", "flagship_slim4_w8a8.ckpt")
+        os.makedirs(os.path.dirname(q_ckpt))
+        t0 = time.perf_counter()
+        q, qcfg = quantize.quantize_checkpoint(CKPT, q_ckpt, calib,
+                                               device=dev)
+        quantize_s = time.perf_counter() - t0
+        params, cfg = checkpoint.load(CKPT)
+        log({"phase": "w8a8_quantize", "seconds": quantize_s,
+             "arch": qcfg.arch, "compute_dtype": qcfg.compute_dtype,
+             "ckpt_bytes": os.path.getsize(q_ckpt),
+             "parent_bytes": os.path.getsize(CKPT)})
+        qm = registry.build(q, qcfg, dev)
+        if qm.encoder[0].conv1.weight.dtype != torch.int8 or \
+                qm.head.scale.dtype != torch.float32:
+            raise AssertionError("the w8a8 model was cast")
+
+        # the pipelines at batch W8A8_BATCH, both cleanups, against bf16
+        raws, labels = synth_batch(np.random.default_rng(77), W8A8_BATCH)
+        u8 = torch.from_numpy(np.stack([native.preprocess_u8(r, 512)
+                                        for r in raws])).to(dev)
+        rows = {}
+        for post in (False, True):
+            q_eng = engine.InferenceEngine(q, qcfg, dev, post)
+            f_eng = engine.InferenceEngine(params, cfg, dev, post)
+            ms = {}
+            for label, e in (("bf16", f_eng), ("w8a8", q_eng),
+                             ("w8a8_2", q_eng), ("bf16_2", f_eng)):
+                ms[label] = time_ms(torch, lambda: e._pipeline(u8), 20)
+            cleanup = "device" if post else "host"
+            for label in ("bf16", "w8a8"):
+                t = [ms[label], ms[label + "_2"]]
+                rows[(label, cleanup)] = t
+                log({"phase": "w8a8_throughput", "model": label,
+                     "cleanup": cleanup, "batch": W8A8_BATCH,
+                     "ms_per_batch": t,
+                     "slices_per_s": [W8A8_BATCH / v * 1e3 for v in t],
+                     **card})
+            if not post:
+                prof = profile_pipeline(torch, lambda: q_eng._pipeline(u8),
+                                        top=12)
+                del prof["ops"]
+                log({"phase": "w8a8_profile", "batch": W8A8_BATCH, **prof,
+                     **card})
+            del q_eng, f_eng
+        torch.cuda.empty_cache()
+
+        # K7 per forward against its bound, the library route, K1/K2
+        sums = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                              "ops_ms", "byte_ms", "bf16_ms"), 0.0)
+        for i, shape in enumerate(SLIM4_CONVS):
+            ops = s8_inputs(torch, shape, W8A8_BATCH, dev, 600 + i)
+            k_ms = time_ms(torch, lambda: conv_s8.conv3x3_s8(*ops), 10)
+            lib_ms = time_ms(torch, lambda: s8_library(
+                torch, F, quantize, conv_s8, *ops), 5)
+            plain_ms = time_ms(torch, lambda: conv_s8.conv3x3_s8_plain(
+                *ops), 2, warmup=1)
+            xb, wb, bb = conv_inputs(torch, shape, W8A8_BATCH, dev, 600 + i)
+            bf_ms = time_ms(torch, lambda: conv.conv3x3_bias_act(xb, wb, bb),
+                            10)
+            bound, o_ms, b_ms = s8_bound(shape, W8A8_BATCH)
+            log({"phase": "k7_time", "shape": [W8A8_BATCH, *shape],
+                 "ms": k_ms, "library_ms": lib_ms, "plain_ms": plain_ms,
+                 "bound_ms": bound, "ops_ms": o_ms, "byte_ms": b_ms,
+                 "share_of_bound": bound / k_ms, "k1_k2_bf16_ms": bf_ms,
+                 **card})
+            for key, val in (("ms", k_ms), ("plain_ms", plain_ms),
+                             ("library_ms", lib_ms), ("bound_ms", bound),
+                             ("ops_ms", o_ms), ("byte_ms", b_ms),
+                             ("bf16_ms", bf_ms)):
+                sums[key] += val
+            del ops, xb, wb, bb
+        log({"phase": "k7_per_forward", "batch": W8A8_BATCH, **sums, **card})
+
+        # the card's masks against the CPU w8a8 path, same tree
+        x2 = (u8[:W8A8_CPU_SLICES].float() / 255.0)[..., None]
+        cpu_model = registry.build(q, qcfg, "cpu")
+        with torch.inference_mode():
+            card_masks = qm.masks(x2).cpu()
+            card_logits = qm(x2)
+            cpu_masks = cpu_model.masks(x2.cpu())
+        agree = (card_masks == cpu_masks).float().mean().item()
+        log({"phase": "w8a8_cpu_reference", "slices": W8A8_CPU_SLICES,
+             "mask_agreement": agree,
+             "finite": bool(torch.isfinite(card_logits).all()),
+             "shape": list(card_logits.shape)})
+        if agree < W8A8_CPU_AGREEMENT or \
+                not torch.isfinite(card_logits).all():
+            raise AssertionError(f"w8a8 card vs CPU masks agree on {agree}")
+
+        # the accuracy contract on bench.py's pool, against the float parent
+        raws, labels = synth_batch(np.random.default_rng(991), 32)
+        xv = torch.from_numpy(np.stack([preprocess_oracle_u8(r, 512)
+                                        for r in raws]).astype(np.float32)
+                              / 255.0)[..., None].to(dev)
+        fm = registry.build(params, cfg, dev)
+        with torch.inference_mode():
+            mq, mf = qm.masks(xv).cpu().numpy(), fm.masks(xv).cpu().numpy()
+        cq, cf = native.postprocess_batch(mq), native.postprocess_batch(mf)
+        ious = [metrics.polygon_iou(
+            native.scaled_polygons(decode.mask_to_image_np(cq[i]), 512, 512),
+            native.scaled_polygons(decode.mask_to_image_np(cf[i]), 512, 512),
+            512, 512) for i in range(32)]
+        fg = [metrics.foreground_iou(mq[i], labels[i]) for i in range(32)]
+        log({"phase": "w8a8_accuracy", "slices": 32,
+             "pixel_agreement": float((mq == mf).mean()),
+             "polygon_iou_mean": float(np.mean(ious)),
+             "polygon_iou_min": float(np.min(ious)),
+             "fg_iou_mean": float(np.mean(fg)),
+             "fg_iou_min": float(np.min(fg)), **card})
+        if np.mean(ious) < W8A8_POLYGON_IOU:
+            raise AssertionError(f"w8a8 polygon IoU {np.mean(ious)} against "
+                                 f"the float parent < {W8A8_POLYGON_IOU}")
+        del qm, fm, cpu_model, xv, u8
+        torch.cuda.empty_cache()
+
+        # every entry point once, the counters set to 0 just before each
+        in_dir = os.path.join(tmp, "in")
+        os.makedirs(in_dir)
+        size = 768
+        paths = write_raws(raw_io, synth_slice, np, in_dir, N_W8A8, size)
+        launches_total: dict = {}
+
+        def counted(what, fn, engines, device_post=False):
+            reset_all_launches()
+            conv_s8.reset_launches()
+            before = [e.forwards for e in engines()]
+            fn()
+            torch.cuda.synchronize()
+            got = {**all_launches(), **conv_s8.LAUNCHES}
+            fwd = sum(e.forwards for e in engines()) - sum(before)
+            want = {k: v * fwd for k, v in W8A8_LAUNCHES.items()}
+            log({"phase": "w8a8_entry_point", "what": what,
+                 "forwards": fwd, "launches": got})
+            if fwd < 1 or {k: got[k] for k in want} != want or \
+                    (got["cc_label"] != 0 and not device_post):
+                raise AssertionError(f"w8a8 {what}: {fwd} forwards, "
+                                     f"launches {got}, want {want}")
+            for k, v in got.items():
+                launches_total[k] = launches_total.get(k, 0) + v
+
+        if not engine.initialize_engine(q_ckpt, device=dev,
+                                        log_dir=os.path.join(tmp, "log")):
+            raise AssertionError("w8a8 initialize_engine returned False")
+        eng = engine.get_engine()
+        out_b = os.path.join(tmp, "batch")
+        counted("process_batch", lambda: run_batch(engine, paths, size,
+                                                   out_b), lambda: [eng])
+        check_artifacts(out_b, "slice_017")
+        def single(out, kw):
+            if not engine.process_single_image(paths[17], size, size, out,
+                                               **kw):
+                raise AssertionError(f"w8a8 process_single_image({kw})")
+
+        for mode, kw in (("plain", {}), ("tta", {"tta": True}),
+                         ("window", {"window": 512})):
+            out = os.path.join(tmp, f"single_{mode}")
+            counted(f"process_single_image_{mode}",
+                    lambda: single(out, kw), lambda: [eng])
+            check_artifacts(out, "slice_017")
+        compare_dirs(out_b, os.path.join(tmp, "single_plain"),
+                     sorted(os.listdir(os.path.join(tmp, "single_plain"))))
+        engine.cleanup_resources()
+        study_dir = os.path.join(tmp, "study")
+        res = {}
+        counted("run_study", lambda: res.update(r=pipeline.run_study(
+            q, qcfg, paths, size, size, batch_size=N_W8A8,
+            host_preprocess=True, artifacts="full", out_dir=study_dir,
+            device=dev)), lambda: [pipeline.study_engine(q, qcfg, dev)])
+        compare_dirs(out_b, study_dir, sorted(os.listdir(out_b)))
+        resident = os.path.join(tmp, "resident")
+        counted("run_study_device_resident_device_cleanup",
+                lambda: pipeline.run_study_device_resident(
+                    q, qcfg, paths, size, size, batch_size=N_W8A8,
+                    artifacts="json", out_dir=resident,
+                    device_postprocess=True, device=dev),
+                lambda: [pipeline.study_engine(q, qcfg, dev, True)],
+                device_post=True)
+        svc = service.SegmentationService(port=0, partitions=4,
+                                          device=str(dev))
+        addr = svc.start()
+        try:
+            out_s = os.path.join(tmp, "svc")
+            holder = {}
+
+            def serve():
+                for req in ({"cmd": "init", "cache": q_ckpt},
+                            {"cmd": "process", "path": in_dir,
+                             "width": size, "height": size,
+                             "output_dir": out_s}):
+                    r = service.request(addr, req, timeout=300)
+                    if not r.get("ok"):
+                        raise AssertionError(f"w8a8 service: {r}")
+                    holder["pool"] = list(svc._engines)
+            # the one-card pool is the global engine itself
+            counted("service", serve, lambda: list({id(e): e for e in [
+                engine.get_engine()] + holder.get("pool", []) if e}.values()))
+            service.request(addr, {"cmd": "shutdown"}, timeout=60)
+        finally:
+            svc.stop()
+        compare_dirs(out_b, out_s, sorted(os.listdir(out_b)))
+    entry = {"name": "conv3x3_s8", "route": "cuda", "source": K7_SOURCE,
+             "replaces": K7_REPLACES,
+             "launches": launches_total.pop("conv3x3_s8"),
+             "max_abs_err": err, "ms": sums["ms"],
+             "plain_ms": sums["plain_ms"], "bound_ms": sums["bound_ms"],
+             "bound_by": ("operations" if sums["ops_ms"] >= sums["byte_ms"]
+                          else "bytes"),
+             "library_ms": sums["library_ms"]}
+    return entry, launches_total
+
+
 def main() -> int:
     import torch
 
@@ -2848,8 +3338,8 @@ def main() -> int:
     from unetseg_tpu_torch.io import native, raw as raw_io
     from unetseg_tpu_torch.metrics import foreground_iou
     from unetseg_tpu_torch.models import registry
-    from unetseg_tpu_torch.ops import (cc, cc_kernel, conv, dec1, halo_copy,
-                                       morphology, postprocess)
+    from unetseg_tpu_torch.ops import (cc, cc_kernel, conv, conv_s8, dec1,
+                                       halo_copy, morphology, postprocess)
     from unetseg_tpu_torch.ops.preprocess import preprocess_oracle_u8
 
     def reset_launches():
@@ -2875,9 +3365,10 @@ def main() -> int:
 
     # -- 2. build (every kernel and the host library, all at once) ----------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=6) as pool:
+    with ThreadPoolExecutor(max_workers=7) as pool:
         for fut in [pool.submit(lib.load) for lib in (
-                conv, cc_kernel, dec1, halo_copy, native, dec1_phases)]:
+                conv, cc_kernel, dec1, halo_copy, native, dec1_phases,
+                conv_s8)]:
             fut.result()
     log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3)})
     for r in conv.resources():
@@ -2895,6 +3386,12 @@ def main() -> int:
     if len(cc_res) != 8 or any(r["spill_bytes"] for r in cc_res):
         raise AssertionError(f"K3: want 8 kernels without spills, got "
                              f"{cc_res}")
+    s8_res = conv_s8.resources()
+    for r in s8_res:
+        log({"phase": "s8_resources", **r})
+    if len(s8_res) != 1 or s8_res[0]["spill_bytes"]:
+        raise AssertionError(f"K7: want 1 kernel without spills, got "
+                             f"{s8_res}")
 
     # -- 3. kernel parity on the card --------------------------------------
     max_err = check_parity(torch, conv, dev, SLIM4_CONVS + EXTRA_CONVS, 8)
@@ -3224,6 +3721,18 @@ def main() -> int:
     for k in kernels:
         k["launches"] += zoo_launches.get(k["name"], 0)
         k["max_abs_err"] = max(k["max_abs_err"], zoo_err.get(k["name"], 0))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pool_launches = partitions_phase(torch, np, dev, card)
+    log({"phase": "partitions_seconds", "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    k7, w8a8_launches = w8a8_phase(torch, np, F, dev, card)
+    log({"phase": "w8a8_seconds", "seconds": time.perf_counter() - t0})
+    for k in kernels:
+        k["launches"] += pool_launches.get(k["name"], 0) + \
+            w8a8_launches.get(k["name"], 0)
+    kernels.append(k7)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -127,17 +127,31 @@ def test_entry_points_default_to_cuda_and_fail_without_it(ckpt, tmp_path):
 
 
 def test_unported_modes_raise(ckpt, tmp_path):
-    """The quantized arch still raises with its ROADMAP item (P11); the
+    """Only float32 on CUDA still raises with its ROADMAP item (P13); the
+    quantized arch (P11, whose convs are int8, so P13 is not its), the
     other archs (P10), the cascade (P8), per-class JSON (P6), TTA and
     sliding windows now serve."""
+    from unetseg_tpu_torch import quantize
+    from unetseg_tpu_torch.data import training_batch
+
     params, cfg = checkpoint.load(ckpt)
-    with pytest.raises(NotImplementedError, match="P11"):
-        engine.InferenceEngine(params, dataclasses.replace(
-            cfg, arch="unet_w8a8"), device="cpu")
+    with pytest.raises(NotImplementedError, match="P13"):
+        engine.InferenceEngine(params, cfg, device="cuda")
+    q_ckpt = str(tmp_path / "w8a8.ckpt")
+    quantize.quantize_checkpoint(
+        ckpt, q_ckpt, [training_batch(np.random.default_rng(3), 2, 64)[0]],
+        device="cpu")
+    if not torch.cuda.is_available():  # past P13, to the CUDA check
+        with pytest.raises(RuntimeError, match="CUDA"):
+            engine.InferenceEngine(*checkpoint.load(q_ckpt), device="cuda")
     raw = _write_raws(tmp_path, 1)[0]
-    for arch in ("unet", "unetpp", "attention_unet"):
+    for arch in ("unet", "unet_w8a8", "unetpp", "attention_unet"):
         if arch == "unet":
             eng = engine.InferenceEngine(params, cfg, device="cpu")
+        elif arch == "unet_w8a8":
+            eng = engine.InferenceEngine(*checkpoint.load(q_ckpt),
+                                         device="cpu")
+            assert eng.cfg.arch == arch
         else:
             zoo_cfg = dataclasses.replace(cfg, arch=arch)
             zoo_ckpt = str(tmp_path / f"{arch}.ckpt")
@@ -152,7 +166,7 @@ def test_unported_modes_raise(ckpt, tmp_path):
             # three artifacts at least; the seeded heads of the new
             # families may leave no contour to draw
             assert len(_files(out)) >= 3 + ("per_class" in kw), kw
-            if arch == "unet":
+            if arch in ("unet", "unet_w8a8"):
                 assert len(_files(out)) == 5 + ("per_class" in kw), kw
     out = str(tmp_path / "batch")
     assert engine.process_batch([raw], W, H, [out], eng=eng,

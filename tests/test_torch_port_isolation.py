@@ -34,7 +34,11 @@ NEW_MODULES = ("unetseg_tpu_torch.ops.dec1", "unetseg_tpu_torch.ops.halo_copy",
                "unetseg_tpu_torch.models.attention_unet",
                "unetseg_tpu_torch.models.unetpp",
                "unetseg_tpu_torch.models.import_torch",
-               "unetseg_tpu_torch.models.import_onnx")
+               "unetseg_tpu_torch.models.import_onnx",
+               "unetseg_tpu_torch.parallel.mesh",
+               "unetseg_tpu_torch.parallel.batch",
+               "unetseg_tpu_torch.parallel.distributed",
+               "unetseg_tpu_torch.quantize", "unetseg_tpu_torch.ops.conv_s8")
 
 
 def test_port_imports_no_jax():
@@ -43,7 +47,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n, bad, *names = proc.stdout.strip().split(" ")
-    assert int(n) >= 40 and bad == "[]", proc.stdout
+    assert int(n) >= 45 and bad == "[]", proc.stdout
     assert set(NEW_MODULES) <= set(names), proc.stdout
 
 
@@ -57,7 +61,7 @@ def test_port_sources_name_no_jax():
     for dirpath, _, files in os.walk(root):
         sources += [os.path.join(dirpath, f) for f in files
                     if f.endswith(".py")]
-    assert len(sources) >= 41
+    assert len(sources) >= 46
     assert {os.path.join(root, "ops", "dec1.py"),
             os.path.join(root, "ops", "halo_copy.py"),
             os.path.join(root, "benchmarks", "exp_bw.py"),
@@ -77,7 +81,12 @@ def test_port_sources_name_no_jax():
             os.path.join(root, "models", "attention_unet.py"),
             os.path.join(root, "models", "unetpp.py"),
             os.path.join(root, "models", "import_torch.py"),
-            os.path.join(root, "models", "import_onnx.py")} <= set(sources)
+            os.path.join(root, "models", "import_onnx.py"),
+            os.path.join(root, "parallel", "mesh.py"),
+            os.path.join(root, "parallel", "batch.py"),
+            os.path.join(root, "parallel", "distributed.py"),
+            os.path.join(root, "quantize.py"),
+            os.path.join(root, "ops", "conv_s8.py")} <= set(sources)
     for path in sources:
         src = open(path).read()
         for word in ("import jax", "from jax", "import flax",

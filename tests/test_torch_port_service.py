@@ -14,6 +14,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from unetseg_tpu import checkpoint as jax_ckpt
 from unetseg_tpu.config import ModelConfig as JaxModelConfig
@@ -235,8 +236,74 @@ def test_service_rejects_dropped_and_unported_fields(svc):
     assert r["ok"]
     assert sorted(os.listdir(tmp_path / "o2")) == [
         "s0.json", "s0_original_sizes.json"]
-    with pytest.raises(NotImplementedError, match="P9b"):
-        service.SegmentationService(port=0, partitions=2, device="cpu")
+    # the partition pool serves (P9b): two CPU partitions, a file and a
+    # directory request through checked-out engines, byte-equal to the
+    # global engine's files above
+    pooled = service.SegmentationService(port=0, partitions=2, device="cpu")
+    paddr = pooled.start()
+    try:
+        assert _req(paddr, {"cmd": "init", "cache": cache})["ok"]
+        st = _req(paddr, {"cmd": "status"})
+        assert st["partitions"] == 2 and pooled._n_built == 2, st
+        r = _req(paddr, _process(tmp_path, None, "pool_dir", tier="json",
+                                 emitter="native"))
+        assert r["ok"] and r["processed"] == 1, r
+        for f in os.listdir(tmp_path / "o2"):
+            assert (tmp_path / "o2" / f).read_bytes() == \
+                (tmp_path / "pool_dir" / f).read_bytes(), f
+        assert _req(paddr, _process(tmp_path, "s0.raw", "pool_one"))["ok"]
+        assert "s0_mask.png" in os.listdir(tmp_path / "pool_one")
+    finally:
+        pooled.stop()
+
+
+def test_service_pool_devices_follow_device(monkeypatch):
+    """The pool splits the card the service was given: ``cuda:1`` keeps it
+    on that card (a one-device pool is the global engine itself), a bare
+    ``cuda`` splits every visible card, the CPU ``partitions`` positions."""
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    monkeypatch.setattr(service.pmesh, "visible_devices", lambda: cards)
+    base = object()
+    monkeypatch.setattr(engine, "get_engine", lambda: base)
+    split = []
+    monkeypatch.setattr(
+        engine, "make_partitioned_engines",
+        lambda n, post, devices: split.append(devices) or list(devices))
+    for device, want_devices, want_pool in (
+            ("cuda:1", [cards[1]], [base]),
+            ("cuda", cards, cards),
+            ("cpu", [torch.device("cpu")] * 3, [torch.device("cpu")] * 3)):
+        s = service.SegmentationService(port=0, partitions=3, device=device)
+        try:
+            assert s._pool_devices() == want_devices, device
+            s._build_partitions()
+            assert s._engines == want_pool and s._n_built == len(want_pool)
+        finally:
+            s._server.server_close()
+    assert split == [cards, [torch.device("cpu")] * 3]
+
+
+def test_service_one_device_pool_serves_global_engine(tmp_path, monkeypatch):
+    """A pool over one device holds the global engine, not a second copy of
+    the model there; a re-init puts the new global engine in the pool."""
+    cache = _setup_data(tmp_path, n=1)
+    pooled = service.SegmentationService(port=0, partitions=4, device="cpu")
+    monkeypatch.setattr(pooled, "_pool_devices",
+                        lambda: [torch.device("cpu")])
+    paddr = pooled.start()
+    try:
+        for i in range(2):
+            assert _req(paddr, {"cmd": "init", "cache": cache})["ok"]
+            assert pooled._engines == [engine.get_engine()]
+            assert pooled._engines[0] is engine.get_engine()
+            assert _req(paddr, _process(tmp_path, "s0.raw", f"one{i}"))["ok"]
+            assert pooled._engines[0] is engine.get_engine()
+        assert _req(paddr, {"cmd": "status"})["partitions"] == 4
+        for f in os.listdir(tmp_path / "one0"):
+            assert (tmp_path / "one0" / f).read_bytes() == \
+                (tmp_path / "one1" / f).read_bytes(), f
+    finally:
+        pooled.stop()
 
 
 def test_service_garbage_frames_survive():
@@ -263,14 +330,15 @@ def test_cli_serve_arg_parsing(monkeypatch, capsys):
     calls = {}
 
     def fake_serve(host, port, device_postprocess=False,
-                   request_timeout_s=None, device="cuda"):
+                   request_timeout_s=None, partitions=1, device="cuda"):
         calls.update(host=host, port=port, dp=device_postprocess,
-                     timeout=request_timeout_s, device=device)
+                     timeout=request_timeout_s, device=device,
+                     partitions=partitions)
 
     monkeypatch.setattr(service, "serve", fake_serve)
     assert cli.main(["--serve", "0.0.0.0:9000", "--device-post"]) == 0
     assert calls == {"host": "0.0.0.0", "port": 9000, "dp": True,
-                     "timeout": None, "device": "cuda"}
+                     "timeout": None, "device": "cuda", "partitions": 1}
     assert cli.main(["--serve"]) == 0
     assert (calls["host"], calls["port"], calls["dp"]) == \
         ("127.0.0.1", 8473, False)
@@ -281,8 +349,13 @@ def test_cli_serve_arg_parsing(monkeypatch, capsys):
     assert cli.main(["--serve", "[::1]:9002"]) == 0
     assert (calls["host"], calls["port"]) == ("::1", 9002)
 
+    # --partitions reaches the service (P9b)
+    assert cli.main(["--serve", "9001", "--partitions", "4"]) == 0
+    assert (calls["port"], calls["partitions"]) == (9001, 4)
+
     calls.clear()
-    for argv, msg in ((["--serve", "9001", "--partitions", "4"], "P9b"),
+    for argv, msg in ((["--serve", "9001", "--partitions", "x"],
+                       "invalid literal"),
                       (["--serve", "host:port"], "invalid --serve"),
                       (["--serve", "::1:9000"], "brackets"),
                       (["--serve", "9001", "--timeout"], "--timeout")):

@@ -275,10 +275,23 @@ def test_registry_dispatch_and_refusals(monkeypatch):
             cfg, torch.Generator().manual_seed(0)), cfg, device="cpu")
         assert model.cfg == cfg
         assert next(model.parameters()).dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="P11"):
-        registry.get("unet_w8a8")
-    with pytest.raises(NotImplementedError, match="P11"):
-        registry.build({}, ModelConfig(arch="unet_w8a8"), device="cpu")
+    # the quantized arch (P11) is a family now: no random init, built as
+    # stored (int8 weights, f32 scales: never cast to bf16)
+    assert not registry.get("unet_w8a8").cast
+    q_cfg = ModelConfig(arch="unet_w8a8", base_channels=4, depth=1,
+                        image_size=32)
+    with pytest.raises(ValueError, match="quantization"):
+        registry.init(q_cfg, torch.Generator().manual_seed(0))
+    from unetseg_tpu_torch import quantize
+
+    f_cfg = dataclasses.replace(q_cfg, arch="unet")
+    f_params = registry.init(f_cfg, torch.Generator().manual_seed(0))
+    q_params = quantize.quantize_params(
+        f_params, f_cfg, dict.fromkeys(quantize._conv_order(f_cfg), 1.0))
+    q_model = registry.build(q_params, q_cfg, device="cpu")
+    assert q_model.cfg == q_cfg
+    assert q_model.encoder[0].conv1.weight.dtype == torch.int8
+    assert q_model.encoder[0].conv1.scale.dtype == torch.float32
     with pytest.raises(KeyError):
         registry.get("nope")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)

@@ -136,7 +136,21 @@ def _pack(v: Any, out: list) -> None:
                 return
         raise ValueError(f"msgpack: length {n} too large")
 
-    if v is None or isinstance(v, bool):
+    if isinstance(v, (np.ndarray, np.generic)):  # first: np.float64 is a float
+        # a numpy scalar (the w8a8 tree's act_scale) as a 0-d array, as
+        # jax.device_get leaves it for flax in the JAX package's save
+        v = np.asarray(v)
+        if v.dtype.hasobject or v.dtype.names:
+            raise ValueError(f"msgpack: unsupported array dtype {v.dtype}")
+        data = packb([list(v.shape), v.dtype.name, v.tobytes("C")])
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(data) in fixext:
+            out.append(bytes([fixext[len(data)]]))
+        else:
+            head(len(data), 0, -1, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
+        out.append(struct.pack(">b", _EXT_NDARRAY))
+        out.append(data)
+    elif v is None or isinstance(v, bool):
         out.append({None: b"\xc0", False: b"\xc2", True: b"\xc3"}[v])
     elif isinstance(v, int):
         if 0 <= v <= 0x7F or -32 <= v < 0:
@@ -173,24 +187,14 @@ def _pack(v: Any, out: list) -> None:
         for k in sorted(v):
             _pack(k, out)
             _pack(v[k], out)
-    elif isinstance(v, np.ndarray):
-        if v.dtype.hasobject or v.dtype.names:
-            raise ValueError(f"msgpack: unsupported array dtype {v.dtype}")
-        data = packb([list(v.shape), v.dtype.name, v.tobytes("C")])
-        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
-        if len(data) in fixext:
-            out.append(bytes([fixext[len(data)]]))
-        else:
-            head(len(data), 0, -1, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
-        out.append(struct.pack(">b", _EXT_NDARRAY))
-        out.append(data)
     else:
         raise TypeError(f"msgpack: cannot encode {type(v).__name__}")
 
 
 def packb(value: Any) -> bytes:
     """Encode one value: dicts, lists and tuples, str, bytes, ints,
-    floats, bools, None, and numpy arrays as flax's ext type 1."""
+    floats, bools, None, and numpy arrays and scalars as flax's ext type 1
+    (a scalar as a 0-d array)."""
     out: list = []
     _pack(value, out)
     return b"".join(out)
@@ -294,11 +298,36 @@ def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
 
     The top-level ``head`` of the UNet and Attention U-Net trees is the
     modules' ``head_weight`` / ``head_bias``.
+
+    A w8a8 site (``unet_w8a8``: a dict holding ``w_q``, ``w_scale``, ``b``,
+    ``act_scale``; ``quantize.quantize_params``) becomes ``{path}.weight``
+    (int8: a 3x3 conv K-major ``(3, 3, D, C)`` for K7, an up-conv ``(C,
+    4*D)``, the head ``(C, D)``), ``{path}.scale`` = act_scale * w_scale
+    (one f32 product, as JAX computes it), ``{path}.bias`` and the 0-d
+    ``{path}.act_scale``; the head too is ``head.weight`` and so on.
     """
     state: Dict[str, torch.Tensor] = {}
 
+    def w8a8_site(node, path: str) -> None:
+        w = np.asarray(node["w_q"])
+        if w.shape[0] == 2:
+            w = up_weight_from_hwio(w)
+        elif w.shape[0] == 1:
+            w = w.reshape(w.shape[2], w.shape[3])
+        else:
+            w = w.transpose(0, 1, 3, 2)
+        act = np.float32(node["act_scale"])
+        site = {"weight": w,
+                "scale": act * np.asarray(node["w_scale"], np.float32),
+                "bias": np.asarray(node["b"], np.float32),
+                "act_scale": np.asarray(act)}
+        for name, a in site.items():
+            state[f"{path}.{name}"] = torch.from_numpy(np.array(a))
+
     def walk(node, path: str) -> None:
-        if isinstance(node, dict) and getattr(node.get("w"), "ndim", 0) == 4:
+        if isinstance(node, dict) and "w_q" in node:
+            w8a8_site(node, path)
+        elif isinstance(node, dict) and getattr(node.get("w"), "ndim", 0) == 4:
             w = np.asarray(node["w"])
             if w.shape[0] == 2:
                 w = up_weight_from_hwio(w)

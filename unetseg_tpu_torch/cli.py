@@ -23,8 +23,8 @@ disagreeing pixels).
 ``python -m unetseg_tpu_torch --serve [HOST:]PORT [--device-post]
 [--timeout S]`` starts the TCP service instead.  ``--device DEV`` (default
 ``cuda``) picks the device of either; ``--device cpu`` rehearses on a host
-without a card.  ``--partitions N`` > 1 is not ported yet (P9b) and prints
-an error naming its ROADMAP.md item.
+without a card.  ``--partitions N`` serves concurrent clients from a pool of
+partition engines (``service.py``; one engine per visible card at most).
 """
 
 from __future__ import annotations
@@ -61,10 +61,6 @@ def print_usage() -> None:
     print("  --cascade-disagree <co> <fb> [max_px] - Route on co-model pixel disagreement (init)")
     print("  --cascade-both <co> <fb> [max_px] [margin_thr] - Union router: disagreement OR low margin (init)")
     print("  <input>                       - Path to image file or directory")
-
-
-def _not_ported(flag: str, item: str) -> None:
-    print(f"Error: {engine.not_ported(flag, item)}", file=sys.stderr)
 
 
 def _process_directory(input_path: str, width: int, height: int,
@@ -328,8 +324,9 @@ def _serve_address(argv: List[str]):
 def main(argv: Optional[List[str]] = None) -> int:
     """REPL by default; ``--serve [HOST:]PORT`` starts the TCP service
     (``service.py``), ``--device-post`` runs the mask cleanup on the device,
-    ``--timeout S`` bounds each process request, ``--device DEV`` picks the
-    device (default cuda)."""
+    ``--timeout S`` bounds each process request, ``--partitions N`` serves
+    from a pool of partition engines, ``--device DEV`` picks the device
+    (default cuda)."""
     argv = sys.argv[1:] if argv is None else argv
     try:
         device = _option(argv, "--device", str, "cuda")
@@ -343,13 +340,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     device_postprocess = "--device-post" in argv
     if not (argv and argv[0] == "--serve"):
         return repl(device=device, device_postprocess=device_postprocess)
-    if partitions > 1:
-        _not_ported("--partitions", "P9b")
-        return 2
     from unetseg_tpu_torch import service
 
     service.serve(host, port, device_postprocess=device_postprocess,
-                  request_timeout_s=timeout_s, device=device)
+                  request_timeout_s=timeout_s, partitions=partitions,
+                  device=device)
     return 0
 
 

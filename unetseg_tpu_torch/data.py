@@ -1,5 +1,6 @@
-"""Synthetic CT-like slices, a copy of ``unetseg_tpu.data.synth_slice`` /
-``synth_batch`` (numpy only).
+"""Synthetic CT-like slices and model-ready batches, a copy of
+``unetseg_tpu.data.synth_slice``, ``synth_batch`` and ``training_batch``
+(numpy only).
 
 A noisy background with a bright soft-edged ellipse "organ" (class 2) and a
 dimmer distractor blob (class 1), mirroring the reference's class semantics
@@ -53,3 +54,20 @@ def synth_batch(rng: np.random.Generator, n: int, size: int = 512):
     for i in range(n):
         raws[i], labels[i] = synth_slice(rng, size)
     return raws, labels
+
+
+def training_batch(rng: np.random.Generator, n: int, size: int = 512):
+    """Model-ready (imgs (n,s,s,1) f32 in [0,1], labels (n,s,s) i32), a copy
+    of ``unetseg_tpu.data.training_batch``: each slice goes through the
+    serving pipeline's per-slice min-max + u8 quantize and /255, so the
+    calibration (and training) distribution is the served one."""
+    from unetseg_tpu_torch.ops.preprocess import preprocess_oracle_u8
+
+    imgs = np.empty((n, size, size, 1), np.float32)
+    labels = np.empty((n, size, size), np.int32)
+    for i in range(n):
+        raw, lab = synth_slice(rng, size)
+        u8 = preprocess_oracle_u8(raw, size)  # same size: a pure quantize
+        imgs[i, ..., 0] = u8.astype(np.float32) / 255.0
+        labels[i] = lab
+    return imgs, labels

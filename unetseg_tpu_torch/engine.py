@@ -19,9 +19,15 @@ from the decoded mask before the cleanup (BASELINE config 2).  With a
 confidence cascade attached (``initialize_engine(cascade_ckpt=...)``,
 :meth:`InferenceEngine.attach_cascade`) slices the router finds suspect are
 served by a stronger fallback model (:meth:`InferenceEngine.infer_cascade`).
-Entry points run on ``device="cuda"`` unless the caller asks for the CPU;
-without CUDA they fail rather than fall back.  Still to port (ROADMAP.md
-queue A): the partition pool and CUDA-graph capture.
+An engine may hold a list of devices (``devices=``): one replica of the
+model on each, a batch that splits evenly over them split into contiguous
+parts in batch order, one per device, the masks gathered back in order (the
+JAX engine's dp mesh); :func:`make_partitioned_engines` splits the visible
+devices into disjoint engines for concurrent callers (the service's
+``--partitions`` pool).  Entry points run on ``device="cuda"`` unless the
+caller asks for the CPU; without CUDA they fail rather than fall back.
+Still to port (ROADMAP.md queue A): the spatial split (P9c) and CUDA-graph
+capture.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from unetseg_tpu_torch.io import native, raw as raw_io
 from unetseg_tpu_torch.models import registry as model_registry
 from unetseg_tpu_torch.ops import confidence, postprocess, preprocess
 from unetseg_tpu_torch.ops.decode import decode_mask
-from unetseg_tpu_torch.parallel import tiles, tta
+from unetseg_tpu_torch.parallel import mesh as pmesh, tiles, tta
 from unetseg_tpu_torch.utils.logger import GLOBAL_LOG, derive_log_dir
 
 #: Artifact tiers of batched processing: which of the five artifacts a
@@ -63,48 +69,97 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class InferenceEngine:
-    """The model on one device plus the batch sizes already warmed up."""
+    """The model on one device, or a replica on each of several, plus the
+    batch sizes already warmed up."""
 
     def __init__(self, params, cfg: ModelConfig, device: str = "cuda",
-                 device_postprocess: bool = False):
+                 device_postprocess: bool = False,
+                 devices: Optional[List] = None):
+        """``devices`` (default ``[device]``) pins the engine to a device
+        list; with more than one, batches that split evenly over them run
+        data-parallel (:meth:`_run`).  A device may repeat: the split is by
+        position, and a repeated device shares one replica."""
         self.cfg = cfg
         self.size = cfg.image_size  # the reference fixes 512 (process.cpp:70)
-        self.device = torch.device(device)
+        self.devices = [torch.device(d) for d in (
+            [device] if devices is None else devices)]
+        if not self.devices:
+            raise ValueError("an engine needs at least one device")
+        self.device = self.devices[0]
+        self.mesh = (pmesh.make_mesh(devices=self.devices)
+                     if len(self.devices) > 1 else None)
         # All-device serving: the mask cleanup runs in the pipeline.
         self.device_postprocess = device_postprocess
         # The JAX-layout tree the model was built from: TTA transforms it.
         self.params = params
-        self.model = model_registry.build(params, cfg, self.device)
+        self.models = pmesh.replicate(
+            lambda d: model_registry.build(params, cfg, d), self.devices)
+        self.model = self.models[0]
         self._warm: set = set()
-        self._tta = None  # the weight-space ensemble, built at first use
+        self._tta = None  # (form, ensemble), built at first use
         #: Model passes run (a TTA call makes 8, a tiled image one per
         #: chunk of windows, a cascade call one per model it runs), so a
         #: caller can hold kernel launch counts against them.
         self.forwards = 0
         # The confidence cascade (attach_cascade): the fallback, an engine
-        # of its own on this device, and the co-model.
+        # of its own on these devices, and the co-model on each device.
         self._fallback: Optional[InferenceEngine] = None
-        self._cascade_co_model = None
+        self._cascade_co_models = None
+        self._cascade_co = (None, None)  # (params, cfg) of the co-model
         self.cascade_router: Optional[str] = None
+
+    def _shards(self, n: int) -> Optional[List[torch.device]]:
+        """The devices a batch of ``n`` splits over, or None: the batch runs
+        on the first device (one device, or ``n`` not a multiple of their
+        count, as the JAX engine's ``_batch_sharding``)."""
+        if self.mesh is None or n % self.mesh.shape["dp"]:
+            return None
+        return pmesh.dp_devices(self.mesh)
+
+    def _run(self, fn: Callable, u8_batch: torch.Tensor,
+             x: Optional[torch.Tensor] = None):
+        """``fn(i, u8, x)`` (``i`` the device's position) on each device's
+        contiguous part of a batch on the first device, the results (a
+        tensor, or a tuple of tensors and Nones) gathered back there in
+        batch order; the whole batch as part 0 when it does not split."""
+        shards = self._shards(u8_batch.shape[0])
+        if shards is None:
+            return fn(0, u8_batch, x)
+        xs = (pmesh.split_batch(x, shards) if x is not None
+              else [None] * len(shards))
+        outs = [fn(i, u8, xp) for i, (u8, xp) in enumerate(
+            zip(pmesh.split_batch(u8_batch, shards), xs))]
+        if not isinstance(outs[0], tuple):
+            return pmesh.gather_batch(outs, self.device)
+        return tuple(None if parts[0] is None
+                     else pmesh.gather_batch(parts, self.device)
+                     for parts in zip(*outs))
+
+    def _masks_on(self, i: int, u8: torch.Tensor,
+                  x: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One device's forward: u8/255 -> ``models[i].masks`` (fused into
+        the last decoder level for a stem-1 model)."""
+        self.forwards += 1
+        with torch.inference_mode():
+            if x is None:
+                x = preprocess.model_input_from_u8(u8)[..., None]
+            return self.models[i].masks(x)
 
     def _masks(self, u8_batch: torch.Tensor,
                x: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(N, S, S) uint8 on the engine's device -> (N, S, S) uint8 class
-        masks: u8/255 -> UNet -> first-max argmax (``UNet.masks``: fused
-        into the last decoder level for a stem-1 model).  ``x`` is the
-        model input when the caller already has it
-        (``preprocess.preprocess_batch`` gives both)."""
-        self.forwards += 1
-        with torch.inference_mode():
-            if x is None:
-                x = preprocess.model_input_from_u8(u8_batch)[..., None]
-            return self.model.masks(x)
+        masks: u8/255 -> UNet -> first-max argmax, split over the devices
+        when the batch splits.  ``x`` is the model input when the caller
+        already has it (``preprocess.preprocess_batch`` gives both)."""
+        return self._run(self._masks_on, u8_batch, x)
 
     def _pipeline(self, u8_batch: torch.Tensor,
                   x: Optional[torch.Tensor] = None) -> torch.Tensor:
         """:meth:`_masks`, then the mask cleanup when it runs on the
-        device."""
-        return self._post(self._masks(u8_batch, x))
+        device: on each part, where it lies (the cleanup is per image)."""
+        return self._run(
+            lambda i, u8, xp: self._post(self._masks_on(i, u8, xp)),
+            u8_batch, x)
 
     def _post(self, masks: torch.Tensor) -> torch.Tensor:
         """The mask cleanup, when it runs on the device."""
@@ -120,9 +175,13 @@ class InferenceEngine:
             return
         self._pipeline(torch.zeros((batch_size, self.size, self.size),
                                    dtype=torch.uint8, device=self.device))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._synchronize()
         self._warm.add(batch_size)
+
+    def _synchronize(self) -> None:
+        for d in set(self.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def _put(self, host: np.ndarray) -> torch.Tensor:
         """A host array as a tensor on the engine's device (the copy is
@@ -140,22 +199,43 @@ class InferenceEngine:
 
     def infer_tta(self, u8_2d: np.ndarray) -> torch.Tensor:
         """8-fold dihedral TTA on one (S, S) uint8 slice -> (S, S) mask on
-        the device (BASELINE config 5), cleaned when the cleanup runs on the
-        device.
+        the first device (BASELINE config 5), cleaned when the cleanup runs
+        on the device.  The form is picked at the first call, as the JAX
+        engine picks it, and kept:
 
-        The weight-space form, as the JAX engine serves the ``unet`` arch:
-        8 passes of the untransposed slice through models whose kernels
-        carry the inverse transforms (``parallel/tta.py``), built at the
-        first call and kept.  Each pass runs ``UNet.forward``: the logits
-        are averaged before the argmax, and the fused last level (K6)
-        returns masks only, so a stem-1 model's last level runs in the conv
-        kernel here."""
+        * a float family on several devices whose count divides 8: the
+          weight-space ensemble over them
+          (``tta.make_tta_weightspace_mesh_pipeline``);
+        * a float family otherwise: the weight-space ensemble on the first
+          device, 8 passes of the untransposed slice through models whose
+          kernels carry the inverse transforms;
+        * ``unet_w8a8``: the activation-space ensemble, one pass of the 8
+          views (its activation scales are not transform-aware).
+
+        Every pass runs the model's ``forward``: the logits are averaged
+        before the argmax, and the fused last level (K6) returns masks
+        only, so a stem-1 model's last level runs in the conv kernel here."""
         if self._tta is None:
-            self._tta = tta.make_tta_weightspace_pipeline(
-                self.params, self.cfg, self.device,
-                device_postprocess=self.device_postprocess)
+            post = self.device_postprocess
+            if self.cfg.arch == "unet_w8a8":
+                self._tta = ("act", tta.make_tta_pipeline(
+                    self.model, device_postprocess=post))
+            elif self.mesh is not None and \
+                    tta.N_TRANSFORMS % self.mesh.shape["dp"] == 0:
+                self._tta = ("ws", tta.make_tta_weightspace_mesh_pipeline(
+                    self.params, self.cfg, self.mesh,
+                    device_postprocess=post))
+            else:
+                self._tta = ("ws", tta.make_tta_weightspace_pipeline(
+                    self.params, self.cfg, self.device,
+                    device_postprocess=post))
+        form, ensemble = self._tta
+        u8 = self._put(np.asarray(u8_2d, np.uint8))
+        if form == "act":
+            self.forwards += 1
+            return ensemble(u8)
         self.forwards += tta.N_TRANSFORMS
-        return self._tta(self._put(np.asarray(u8_2d, np.uint8))[None])[0]
+        return ensemble(u8[None])[0]
 
     def infer_tiled(self, u8_2d, window: int,
                     overlap: Optional[int] = None) -> torch.Tensor:
@@ -249,18 +329,21 @@ class InferenceEngine:
         * ``"both"``: the union: disagreement above ``threshold`` or margin
           below ``margin_threshold``.
 
-        The models are built on this engine's device and stay there for its
-        life."""
+        The models are placed as this engine's model is, on each of its
+        devices (the fallback is an engine over the same devices), and stay
+        there for its life."""
         if router not in ROUTERS:
             raise ValueError(f"router must be 'margin', 'disagree' or "
                              f"'both', got {router!r}")
         if router in ("disagree", "both") and co_params is None:
             raise ValueError(f"router={router!r} needs co_params/co_cfg")
-        fallback = InferenceEngine(params, cfg, str(self.device),
-                                   self.device_postprocess)
-        co_model = (model_registry.build(co_params, co_cfg, self.device)
-                    if co_params is not None else None)
-        self._fallback, self._cascade_co_model = fallback, co_model
+        fallback = InferenceEngine(params, cfg, device_postprocess=(
+            self.device_postprocess), devices=self.devices)
+        co_models = (pmesh.replicate(
+            lambda d: model_registry.build(co_params, co_cfg, d),
+            self.devices) if co_params is not None else None)
+        self._fallback, self._cascade_co_models = fallback, co_models
+        self._cascade_co = (co_params, co_cfg)
         self.cascade_router = router
         self.cascade_threshold = float(threshold)
         self.cascade_margin_threshold = float(margin_threshold)
@@ -277,22 +360,27 @@ class InferenceEngine:
         ``_logits_and_mask``): a stem-1 student's last level then runs in
         the conv kernel, not in K6, which returns masks only.  The disagree
         router needs masks only and runs ``UNet.masks`` for both models.
-        The disagreement is counted on the masks before the cleanup."""
+        The disagreement is counted on the masks before the cleanup.  A
+        batch that splits over the devices runs as parts (:meth:`_run`)."""
+        return self._run(self._router_on, u8_batch)
+
+    def _router_on(self, i: int, u8_batch: torch.Tensor, _x=None):
+        """:meth:`_router_pass` on device ``i``'s part."""
         with torch.inference_mode():
             x = preprocess.model_input_from_u8(u8_batch)[..., None]
             self.forwards += 1
             margin = None
             if self.cascade_router == "disagree":
-                masks = self.model.masks(x)
+                masks = self.models[i].masks(x)
             else:
-                logits = self.model(x)
+                logits = self.models[i](x)
                 masks = decode_mask(logits, self.cfg.num_classes)
                 margin = confidence.boundary_margin(logits, masks)
                 del logits
             stat = margin
             if self.cascade_router != "margin":
                 self.forwards += 1
-                co_masks = self._cascade_co_model.masks(x)
+                co_masks = self._cascade_co_models[i].masks(x)
                 stat = (masks != co_masks).reshape(masks.shape[0], -1).sum(
                     1).float()
             return (self._post(masks), stat,
@@ -302,8 +390,10 @@ class InferenceEngine:
         """The fallback engine's pipeline on a device u8 batch: its masks
         (``UNet.masks``: K6 for a stem-1 model K6 is built for), cleaned
         when the cleanup runs on the device."""
-        self.forwards += 1
-        return self._fallback._pipeline(u8_batch)
+        before = self._fallback.forwards
+        masks = self._fallback._pipeline(u8_batch)
+        self.forwards += self._fallback.forwards - before
+        return masks
 
     def compile_cascade(self, n: int = 1) -> None:
         """Warm up the cascade's passes at init time: the router pass for
@@ -319,8 +409,7 @@ class InferenceEngine:
         if ("cascade", 1) not in self._warm:
             self._fallback_pass(zeros[:1])
             self._warm.add(("cascade", 1))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._synchronize()
 
     def infer_cascade(self, u8_batch: np.ndarray,
                       n_valid: Optional[int] = None
@@ -463,6 +552,50 @@ def initialize_engine(cache_path: str, log_dir: Optional[str] = None,
             GLOBAL_LOG.write(f"Initialization error: {e}")
         _engine = None  # never leave a half-initialized engine servable
         return False
+
+
+def make_partitioned_engines(n_partitions: int,
+                             device_postprocess: bool = False,
+                             devices: Optional[List] = None
+                             ) -> List[InferenceEngine]:
+    """Split the devices into N independent engines for concurrent callers
+    (the reference's thread_local-context intent, src/process.cpp:14-19):
+
+        engines = engine.make_partitioned_engines(4)
+        # thread i:
+        engine.process_single_image(path, w, h, out, eng=engines[i])
+
+    ``devices`` defaults to every visible CUDA device; ``min(n, len(devices))``
+    engines each own a disjoint run of them by position, the remainder
+    spread round-robin (sizes differ by at most 1), so one card gives one
+    engine.  A list that repeats a device (``["cpu"] * 4``) is split by
+    position too.  Each partition serves the global engine's model and its
+    cascade.  Requires a prior :func:`initialize_engine`."""
+    base = get_engine()
+    if base is None:
+        raise RuntimeError("initialize_engine first")
+    devs = [torch.device(d) for d in (
+        pmesh.visible_devices() if devices is None else devices)]
+    n = max(1, min(int(n_partitions), len(devs)))
+    per, extra = divmod(len(devs), n)
+    bounds = [0]
+    for i in range(n):
+        bounds.append(bounds[-1] + per + (1 if i < extra else 0))
+    engines = [InferenceEngine(base.params, base.cfg,
+                               device_postprocess=device_postprocess,
+                               devices=devs[bounds[i]:bounds[i + 1]])
+               for i in range(n)]
+    if base.cascade_attached:
+        # a partition that dropped the cascade would serve exactly the
+        # masks it was attached to avoid
+        co_params, co_cfg = base._cascade_co
+        for eng in engines:
+            eng.attach_cascade(
+                base._fallback.params, base._fallback.cfg,
+                base.cascade_threshold, router=base.cascade_router,
+                co_params=co_params, co_cfg=co_cfg,
+                margin_threshold=base.cascade_margin_threshold)
+    return engines
 
 
 def cleanup_resources() -> None:

@@ -3,7 +3,9 @@
 Checkpoints name their family in ``ModelConfig.arch``; every pipeline
 builds its model through :func:`build`, so the engine, TTA, windows, the
 study runner and the cascade serve any registered family.  The three float
-families are registered: ``unet``, ``attention_unet`` and ``unetpp``.  A
+families are registered here: ``unet``, ``attention_unet`` and ``unetpp``;
+the quantized ``unet_w8a8`` registers itself from ``quantize.py`` at its
+first lookup.  A
 family is the module that holds its weights (made from the config and the
 parameter tree, whose head count UNet++ keeps) and its ``init``; one
 mapping, ``checkpoint.params_from_jax``, names every family's conv sites
@@ -29,13 +31,17 @@ class Family(NamedTuple):
     module: Callable[[ModelConfig, dict], nn.Module]
     #: (cfg, torch.Generator) -> a fresh JAX-layout tree of float32 numpy.
     init: Callable[[ModelConfig, torch.Generator], dict]
+    #: A float family, cast to the config's compute dtype when built; the
+    #: quantized family keeps its stored int8 and f32 tensors.
+    cast: bool = True
 
 
 _REGISTRY: Dict[str, Family] = {}
 
 
-def register(name: str, module: Callable, init_fn: Callable) -> None:
-    _REGISTRY[name] = Family(module, init_fn)
+def register(name: str, module: Callable, init_fn: Callable,
+             cast: bool = True) -> None:
+    _REGISTRY[name] = Family(module, init_fn, cast)
 
 
 register("unet", lambda cfg, params: unet.UNet(cfg), unet.init)
@@ -48,10 +54,11 @@ register("unetpp",
 
 
 def get(name: str) -> Family:
-    if name == "unet_w8a8":
-        raise NotImplementedError(
-            "arch 'unet_w8a8' (the w8a8 quantized UNet) is not ported yet "
-            "(ROADMAP.md queue A, P11)")
+    if name == "unet_w8a8" and name not in _REGISTRY:
+        # importing the module registers the quantized family
+        from unetseg_tpu_torch import quantize
+
+        quantize.register_arch()
     if name not in _REGISTRY:
         raise KeyError(f"Unknown model arch '{name}'; registered: "
                        f"{sorted(_REGISTRY)}")
@@ -64,14 +71,17 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 
 def build(params: dict, cfg: ModelConfig, device: str = "cuda") -> nn.Module:
-    """The model for ``cfg`` with the JAX param pytree ``params`` loaded,
-    cast to the compute dtype and placed on ``device``."""
+    """The model for ``cfg`` with the JAX param pytree ``params`` loaded and
+    placed on ``device``: a float family cast to the compute dtype, the
+    quantized ``unet_w8a8`` as stored (int8 weights, f32 scales and biases;
+    its convs are int8, so the float32 refusal is not its)."""
     family = get(cfg.arch)
     if cfg.compute_dtype not in _DTYPES:
         raise NotImplementedError(
             f"compute_dtype {cfg.compute_dtype!r} is not ported")
     device = torch.device(device)
-    if device.type == "cuda" and cfg.compute_dtype == "float32":
+    if device.type == "cuda" and cfg.compute_dtype == "float32" and \
+            family.cast:
         raise NotImplementedError(
             "compute_dtype 'float32' has no conv kernel on CUDA yet "
             "(ROADMAP.md queue A, P13: the float32 conv kernel); serve "
@@ -81,4 +91,6 @@ def build(params: dict, cfg: ModelConfig, device: str = "cuda") -> nn.Module:
                            "explicitly to run on the CPU")
     model = family.module(cfg, params)
     model.load_state_dict(params_from_jax(params))
+    if not family.cast:
+        return model.to(device=device).eval()
     return model.to(device=device, dtype=_DTYPES[cfg.compute_dtype]).eval()

@@ -1,1 +1,3 @@
-"""Sliding windows at native resolution and the TTA ensemble, on one card."""
+"""Device meshes and the data-parallel split (``mesh``, ``batch``), the
+multi-process setup (``distributed``), sliding windows at native resolution
+(``tiles``) and the TTA ensemble (``tta``)."""

@@ -11,7 +11,11 @@ ties:
 * weight space (:func:`make_tta_weightspace_pipeline`): conv, pool, concat,
   space-to-depth and depth-to-space are dihedral-equivariant, so 8 models
   whose kernels carry the inverse transform (:func:`transform_params_dihedral`)
-  run on the same, untransposed input.  The engine serves this form.
+  run on the same, untransposed input.  The engine serves this form for the
+  float families, over its devices when it has several
+  (:func:`make_tta_weightspace_mesh_pipeline`), and the activation-space
+  form for the quantized ``unet_w8a8``, whose scales are not
+  transform-aware.
 
 Both run ``UNet.forward`` (logits): the fused last level (K6) returns masks,
 so it cannot serve an ensemble of logits.
@@ -186,6 +190,45 @@ def make_tta_weightspace_pipeline(params: dict, cfg: ModelConfig, device,
         for model in variants:
             logits = model(x)
             acc = logits if acc is None else acc + logits
+        return _finish(acc / N_TRANSFORMS, cfg.num_classes,
+                       device_postprocess)
+
+    return pipeline
+
+
+def make_tta_weightspace_mesh_pipeline(params: dict, cfg: ModelConfig,
+                                       mesh, device_postprocess: bool = False
+                                       ) -> Callable:
+    """The weight-space ensemble over a mesh's dp devices (BASELINE config
+    5, "across a slice"): (N, H, W) uint8 on the first device -> (N, H, W)
+    masks there.  Needs ``N_TRANSFORMS % dp == 0``; variant k is built on
+    dp device ``k // (8 / dp)``, here, once, and each device runs its
+    variants on the same untransposed input.  The logits are added on the
+    first device in variant order, so the masks are bit-equal to
+    :func:`make_tta_weightspace_pipeline`'s (JAX sums per device, then
+    across: another order of the f32 sum)."""
+    from unetseg_tpu_torch.parallel import mesh as pmesh
+
+    devices = pmesh.dp_devices(mesh)
+    if N_TRANSFORMS % len(devices):
+        raise ValueError(f"{N_TRANSFORMS} weight variants do not split "
+                         f"over dp={len(devices)}")
+    local = N_TRANSFORMS // len(devices)
+    variants = [registry.build(transform_params_dihedral(params, cfg, k),
+                               cfg, devices[k // local])
+                for k in range(N_TRANSFORMS)]
+    first = devices[0]
+
+    @torch.inference_mode()
+    def pipeline(u8b: torch.Tensor) -> torch.Tensor:
+        x = (u8b.to(torch.float32) / 255.0)[..., None]
+        inputs = {d: x.to(d, non_blocking=True) for d in set(devices)}
+        logits = [model(inputs[devices[k // local]])
+                  for k, model in enumerate(variants)]
+        acc = None
+        for lg in logits:
+            lg = lg.to(first, non_blocking=True)
+            acc = lg if acc is None else acc + lg
         return _finish(acc / N_TRANSFORMS, cfg.num_classes,
                        device_postprocess)
 

@@ -33,8 +33,18 @@ owner); artifact writing happens in the request thread.
 ensemble, sliding windows at native resolution); a directory request with
 any of them is refused.  The ``cascade*`` init fields attach the confidence
 cascade (``engine.initialize_engine``); ``per_class`` adds each slice's
-``{base}_classes.json``.  Not ported yet, and refused with the ROADMAP.md
-item that carries it: the partition pool (``partitions > 1``, P9b).
+``{base}_classes.json``.
+
+``partitions=N`` (``--partitions N``) builds a pool of partition engines
+after each ``init`` (``engine.make_partitioned_engines``: the visible CUDA
+devices split into at most N engines for a bare ``device="cuda"``; on the
+CPU, N engines over ``["cpu"] * N``).  A pool over one card (a one-card
+host, or ``device="cuda:1"``, which keeps the pool on that card) is the
+global engine itself.  Each ``process`` request checks an engine
+out and runs without the device lock, so concurrent clients run in
+parallel, each on its own devices; a re-init discards engines checked out
+against the old checkpoint when they come back; ``shutdown`` waits for
+every checked-out engine.
 
 Start with ``python -m unetseg_tpu_torch --serve [HOST:]PORT`` or
 :func:`serve` / :class:`SegmentationService` programmatically.
@@ -48,11 +58,14 @@ import socket
 import socketserver
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Optional, Tuple
+
+import torch
 
 from unetseg_tpu_torch import engine
 from unetseg_tpu_torch.io import raw as raw_io
+from unetseg_tpu_torch.parallel import mesh as pmesh
 from unetseg_tpu_torch.utils.logger import GLOBAL_LOG
 
 
@@ -93,8 +106,6 @@ class SegmentationService:
                  device_postprocess: bool = False,
                  request_timeout_s: Optional[float] = None,
                  partitions: int = 1, device: str = "cuda"):
-        if int(partitions) > 1:
-            raise engine.not_ported("the partitioned engine pool", "P9b")
         self._lock = threading.Lock()   # the card's owner
         self._device = device
         self._device_postprocess = device_postprocess
@@ -107,6 +118,14 @@ class SegmentationService:
         self._detached = 0              # timed-out requests still running
         self.max_detached = 8           # repeated client timeouts must not
                                         # queue work without bound
+        # partitions > 1: a checkout pool of partition engines, so
+        # concurrent clients run in parallel, each on its own devices.
+        self._partitions = max(1, int(partitions))
+        self._engines: list = []        # the pool: engines not checked out
+        self._n_built = 0               # engines of the current pool
+        self._pool_cv = threading.Condition()
+        self._pool_gen = 0              # bumped by re-init: stale engines
+        self._outstanding = 0           # checked-out engines in flight
         self._server = _Server((host, port), _Handler)
         self._server.service = self  # type: ignore
         self._server.shutdown_requested = False  # type: ignore
@@ -133,7 +152,7 @@ class SegmentationService:
             return {"ok": True, "initialized": engine.get_engine() is not None,
                     "processed": self._n_processed,
                     "device_postprocess": self._device_postprocess,
-                    "partitions": 1, "draining": self._draining}
+                    "partitions": self._partitions, "draining": self._draining}
         if cmd == "metrics":
             return self._metrics(req)
         return {"ok": False, "error": f"unknown cmd: {cmd!r}"}
@@ -248,8 +267,69 @@ class SegmentationService:
                 cascade_threshold=threshold, cascade_router=router,
                 cascade_co_ckpt=req.get("cascade_co"),
                 cascade_margin_threshold=margin_threshold)
+            if ok and self._partitions > 1:
+                try:
+                    self._build_partitions()
+                except Exception as e:
+                    # a half-built pool would leave get_engine() set while
+                    # every checkout waits on an empty pool
+                    engine.cleanup_resources()
+                    return {"ok": False,
+                            "error": f"partition pool build failed: "
+                                     f"{type(e).__name__}: {e}"}
         return {"ok": True} if ok else \
             {"ok": False, "error": f"initialization failed for {cache}"}
+
+    # -- the partition pool -------------------------------------------------
+
+    def _pool_devices(self) -> list:
+        """The devices the pool splits: the service's card when ``device``
+        names one (``cuda:1``), every visible card for a bare ``cuda``, and
+        ``partitions`` positions of the CPU."""
+        dev = torch.device(self._device)
+        if dev.type != "cuda":
+            return [dev] * self._partitions
+        return [dev] if dev.index is not None else pmesh.visible_devices()
+
+    def _build_partitions(self) -> None:
+        """A fresh pool over :meth:`_pool_devices`.  A pool of one device is
+        the global engine itself, which already lies there: a second engine
+        would be a second copy of the model on that card."""
+        devices = self._pool_devices()
+        fresh = ([engine.get_engine()] if len(devices) == 1 else
+                 engine.make_partitioned_engines(
+                     self._partitions, self._device_postprocess,
+                     devices=devices))
+        with self._pool_cv:
+            # engines checked out against the old checkpoint are dropped
+            # when they come back
+            self._pool_gen += 1
+            self._engines = fresh
+            self._n_built = len(fresh)
+            self._pool_cv.notify_all()
+
+    def _checkout(self, wait_s: float = 600.0):
+        """(generation, engine) from the pool, or None when draining, when
+        no pool was built, or after ``wait_s``."""
+        deadline = time.monotonic() + wait_s
+        with self._pool_cv:
+            while True:
+                if self._draining or self._n_built == 0:
+                    return None
+                if self._engines:
+                    self._outstanding += 1
+                    return self._pool_gen, self._engines.pop()
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return None
+                self._pool_cv.wait(remaining)
+
+    def _checkin(self, gen: int, eng) -> None:
+        with self._pool_cv:
+            self._outstanding -= 1
+            if gen == self._pool_gen:
+                self._engines.append(eng)
+            self._pool_cv.notify_all()
 
     def _process(self, req: dict) -> dict:
         if engine.get_engine() is None:
@@ -288,33 +368,49 @@ class SegmentationService:
                     "error": "emitter/tier apply to directory (batched) "
                              "requests only"}
 
-        with self._lock:
-            if os.path.isdir(path):
-                files = raw_io.find_16bit_images(
-                    path, recursive=bool(req.get("recursive", False)))
-                if not files:
-                    return {"ok": False, "error": f"no images under {path}"}
-                out_dirs = [
-                    os.path.join(out_dir,
-                                 os.path.relpath(os.path.dirname(f), path))
-                    for f in files]
-                n_ok, n_fail = engine.process_batch(
-                    files, width, height, out_dirs, emitter=emitter,
-                    tier=tier, per_class=per_class)
+        partitioned = self._partitions > 1
+        eng = gen = None                # the global engine, under the lock
+        lock = self._lock
+        if partitioned:
+            checked_out = self._checkout()
+            if checked_out is None:
+                return {"ok": False,
+                        "error": ("shutting down" if self._draining else
+                                  "no partition engine available")}
+            gen, eng = checked_out
+            lock = nullcontext()        # the engine owns its devices
+        try:
+            with lock:
+                if os.path.isdir(path):
+                    files = raw_io.find_16bit_images(
+                        path, recursive=bool(req.get("recursive", False)))
+                    if not files:
+                        return {"ok": False,
+                                "error": f"no images under {path}"}
+                    out_dirs = [
+                        os.path.join(out_dir, os.path.relpath(
+                            os.path.dirname(f), path))
+                        for f in files]
+                    n_ok, n_fail = engine.process_batch(
+                        files, width, height, out_dirs, eng=eng,
+                        emitter=emitter, tier=tier, per_class=per_class)
+                    with self._count_lock:
+                        self._n_processed += n_ok
+                    return {"ok": n_fail == 0, "processed": n_ok,
+                            "failed": n_fail}
+                ok = engine.process_single_image(
+                    path, width, height, out_dir, tta=tta,
+                    window=int(window) if window else None,
+                    # overlap=0 (non-overlapping windows) is a valid value
+                    overlap=int(overlap) if overlap is not None else None,
+                    per_class=per_class, eng=eng)
                 with self._count_lock:
-                    self._n_processed += n_ok
-                return {"ok": n_fail == 0, "processed": n_ok,
-                        "failed": n_fail}
-            ok = engine.process_single_image(
-                path, width, height, out_dir, tta=tta,
-                window=int(window) if window else None,
-                # overlap=0 (non-overlapping windows) is a valid value
-                overlap=int(overlap) if overlap is not None else None,
-                per_class=per_class)
-            with self._count_lock:
-                self._n_processed += int(ok)
-            return {"ok": True} if ok else \
-                {"ok": False, "error": f"processing failed for {path}"}
+                    self._n_processed += int(ok)
+                return {"ok": True} if ok else \
+                    {"ok": False, "error": f"processing failed for {path}"}
+        finally:
+            if partitioned:
+                self._checkin(gen, eng)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -332,13 +428,28 @@ class SegmentationService:
 
     def stop(self, drain_timeout_s: float = 60.0) -> None:
         """Stop accepting, let in-flight requests finish and write their
-        responses, then tear the engine down.  The drain is bounded: after
+        responses (and every checked-out partition engine come back), then
+        tear the engine down.  The drain is bounded: after
         ``drain_timeout_s`` (a detached request may hold the device lock)
         it warns and tears down anyway."""
         self._draining = True
         self._server.shutdown()
         self._server.server_close()
         deadline = time.monotonic() + drain_timeout_s
+        # the pool drains when every checked-out engine is back (stale ones
+        # count too: they leave _outstanding though not rejoining the pool)
+        with self._pool_cv:
+            while self._outstanding > 0:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    print(f"Warning: tearing down with {self._outstanding} "
+                          f"request(s) still running after "
+                          f"{drain_timeout_s}s drain")
+                    break
+                self._pool_cv.wait(remaining)
+            self._engines = []
+            self._n_built = 0
+            self._pool_cv.notify_all()
         with self._inflight_cv:
             while self._inflight > 0:
                 remaining = deadline - time.monotonic()
