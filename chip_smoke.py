@@ -6,14 +6,14 @@
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. Device: the card's name and power limit (nvidia-smi); no CUDA -> exit 1.
-2. Build: all five kernel sources (conv, CCL, fused last decoder level,
-   halo copy, the int8 conv K7; nvcc, sm_90a), K6's phase-stamped build
-   and the host C++ library, all at once; then
-   the conv kernel's, K6's, the CCL passes' and K7's registers, spills and
-   shared memory per instantiation, as ``nvcc -Xptxas -v`` reported them,
-   one line each (``conv_resources``, ``dec1_resources``,
-   ``cc_resources``, ``s8_resources``); a spill in K6, K3 or K7 fails the
-   run.
+2. Build: all six kernel sources (conv, the float32 conv K8, CCL, fused
+   last decoder level, halo copy, the int8 conv K7; nvcc, sm_90a), K6's
+   phase-stamped build and the host C++ library, all at once; then
+   the conv kernel's, K6's, the CCL passes', K8's and K7's registers,
+   spills and shared memory per instantiation, as ``nvcc -Xptxas -v``
+   reported them, one line each (``conv_resources``, ``dec1_resources``,
+   ``cc_resources``, ``f32_resources``, ``s8_resources``); a spill in K6,
+   K3, K8 or K7 fails the run.
 3. Kernel parity: the conv kernel against its plain PyTorch version on
    slim4's ten conv shapes at batch 8, plus two ragged shapes, and on the
    tiling's edge cases at batch 3 (several column tiles with a remainder,
@@ -92,8 +92,8 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``UNet.masks`` (the unfused route: no K6 launch, the conv kernel once
    per 3x3 conv), card vs CPU masks within ``CPU_TIE_ULPS`` of
    ``dec1.near_tie``; a base-8 model (D = 8 padded to 16) the same way and
-   served by the engine; a float32 model refused by ``initialize_engine``
-   with the reason in its log.
+   served by the engine; a float32 model (refused before K8) served by
+   the engine, every conv in K8.
 
 12. Device preprocess (``preprocess_device``): ``normalize_u8`` and
    ``resize_normalize_u8`` on the card bit-equal to the same functions on
@@ -235,8 +235,50 @@ Phases, each of which fails the run (non-zero exit) on error:
    service with ``partitions=4``), 10 K7 and no K1/K2/K6 launch per
    forward, artifacts byte-equal to ``process_batch``'s.
 
-The line before the last is the ``{"kernels": [...]}`` record; the last line
-is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+22. Float32 (``f32``, P13): TF32 off for cuDNN and cuBLAS (asserted).  K8
+   (``csrc/conv3x3_f32.cu``) against its plain version and both against a
+   float64 reference on every conv shape slim4, the flagship and the zoo
+   serve (batch 2) and on the tiling's edges (C = 1, 4, 48, 80, 96; D = 48,
+   112; ragged B, H, W; with and without ReLU): within ``F32_TOL`` of max
+   |out| and at most ``F32_VS_LIBRARY`` times F.conv2d's own float32
+   error.  K8 per shape beside its bound (float32 operations at 67
+   TFLOP/s, or bytes), F.conv2d in float32 and its plain version, summed
+   per slim4 forward at 128 (the kernels line) and per flagship forward at
+   32.  The seeded flagship (head centred) and slim4 re-configured to
+   float32, counters set to 0 just before each call: ``process_batch``,
+   ``process_single_image`` plain, TTA, windows and with device cleanup,
+   ``run_study``, the TCP service, the REPL; every forward's convs in K8,
+   no K1/K2/K6; artifacts byte-equal where two entry points serve one
+   slice; logits on two slices within ``F32_LOGIT_TOL`` of the CPU path's,
+   masks equal but at near ties; ms per batch and slices/s beside bf16's
+   in turns, the device time by kernel.  The cascade (float32 slim4
+   student, float32 flagship fallback) and UNet++ and Attention U-Net in
+   float32 through ``process_batch``.
+23. Training (``train``, P12): ``Conv3x3Function``'s output, dx, dw and db
+   against autograd through the plain version, bf16 and float32, on phase
+   22's shapes; train-to-serve at tests/test_train_to_serve.py's size and
+   asserts (64², base 8, depth 2, float32, 150 steps at lr 1e-2: the last
+   loss below 0.3x the first, held-out IoU above 0.75), counters set to 0
+   just before it (per step every conv in K8 and each but the first's data
+   gradient); the trained checkpoint served on the card and on the CPU,
+   contour JSONs byte-equal where the masks are; a ``save_state`` /
+   ``load_state`` resume bit-equal to the uninterrupted run (cuDNN
+   deterministic); the dp step over two positions of the card against the
+   one-device step, with boundary weights.
+24. The flagship recipe (``train_flagship``,
+   ``unetseg_tpu_torch/benchmarks/train_flagship.py``: bf16, remat, batch
+   8, lr 3e-4) for ``TRAIN_STEPS`` steps, counters set to 0 just before
+   it: per step 3 x 18 - 3 K1/K2 launches (forward, the remat recompute of
+   every stage but the bottleneck, 17 data gradients), no K6; ms per step,
+   training slices/s, peak memory, the device time by kernel and idle
+   share, and per step the forward, dgrad and wgrad times by CUDA events;
+   the loss falls.  ``F32_TRAIN_STEPS`` float32 flagship steps, timed;
+   ``DISTILL_STEPS`` distillation steps, slim4 the student, the seeded
+   flagship's logits the teacher.
+
+The line before the last is the ``{"kernels": [...]}`` record, each conv
+kernel's entry with its data-gradient launches (``dgrad_launches``); the
+last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 import contextlib
@@ -345,10 +387,6 @@ def log(obj) -> None:
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
 
 
-def variant(c: int) -> str:
-    return "conv3x3_bias_act_small_c" if c < 128 else "conv3x3_bias_act"
-
-
 def conv_inputs(torch, shape, batch, device, seed):
     h, w, c, d = shape
     g = torch.Generator(device=device).manual_seed(seed)
@@ -427,7 +465,7 @@ def check_parity(torch, conv, device, shapes, batch):
             torch.testing.assert_close(got.float(), want.float(), rtol=RTOL,
                                        atol=ATOL)
             err = (got.float() - want.float()).abs().max().item()
-            v = variant(shape[2])
+            v = conv.variant(shape[2], torch.bfloat16)
             worst[v] = max(worst.get(v, 0.0), err)
             log({"phase": "parity", "shape": [batch, *shape], "relu": relu,
                  "variant": v, "max_abs_err": err})
@@ -612,7 +650,8 @@ def run_batch(engine, paths, size, out_dir):
 
 def check_launches(launches, forwards, k3_per_forward):
     if launches["conv3x3_bias_act"] != 6 * forwards or \
-            launches["conv3x3_bias_act_small_c"] != 4 * forwards:
+            launches["conv3x3_bias_act_small_c"] != 4 * forwards or \
+            launches["conv3x3_bias_act_f32"]:
         raise AssertionError(f"{launches} launches over {forwards} forwards: "
                              f"want 10 conv per forward (6 + 4)")
     if launches["cc_label"] != k3_per_forward * forwards:
@@ -904,7 +943,7 @@ def flagship(torch, np, F, dev, card):
         lib_ms = time_ms(torch, lambda: F.conv2d(xc, wc, b, padding=1), 5)
         bound, f_ms, b_ms = conv_bound(shape, FLAGSHIP_BATCH)
         log({"phase": "flagship_conv_time", "shape": [FLAGSHIP_BATCH, *shape],
-             "variant": variant(shape[2]), "ms": k_ms, "library_ms": lib_ms,
+             "variant": conv.variant(shape[2], torch.bfloat16), "ms": k_ms, "library_ms": lib_ms,
              "bound_ms": bound, "flop_ms": f_ms, "byte_ms": b_ms, **card})
         del x, w, b, xc, wc
 
@@ -1116,8 +1155,7 @@ def configs(torch, np, dev, card):
     and the 12-class stem-1 model of benchmarks/exp_slim_arch.py (4 input
     channels: a space-to-depth of the slice) through ``UNet.masks``; a
     base-8 model (D = 8 padded to 16) through ``UNet.masks`` and served by
-    the engine; a float32 model refused by ``initialize_engine`` with its
-    reason in the log."""
+    the engine; a float32 model served by the engine, every conv in K8."""
     from unetseg_tpu_torch import checkpoint, engine
     from unetseg_tpu_torch.config import ModelConfig
     from unetseg_tpu_torch.data import synth_slice
@@ -1167,19 +1205,31 @@ def configs(torch, np, dev, card):
                                  "kernel alone")
         engine.cleanup_resources()
 
+        # float32, refused before K8 (P13): served, every conv in K8
         f32 = os.path.join(tmp, "models", "f32.ckpt")
         f32_cfg = ModelConfig(base_channels=16, depth=1,
                               compute_dtype="float32")
         checkpoint.create(f32, f32_cfg, seed=0)
-        log_dir = os.path.join(tmp, "log_f32")
-        refused = not engine.initialize_engine(f32, log_dir=log_dir)
+        if not engine.initialize_engine(f32, log_dir=os.path.join(tmp, "lf")):
+            raise AssertionError("initialize_engine(float32) returned False")
+        eng = engine.get_engine()
+        forwards0 = eng.forwards
+        conv.reset_launches()
+        dec1.reset_launches()
+        f32_out = os.path.join(tmp, "out_f32")
+        ok, failed = engine.process_batch(paths, 768, 768,
+                                          [f32_out] * len(paths),
+                                          batch_size=CONFIG_BATCH)
+        launches = {**conv.LAUNCHES, **dec1.LAUNCHES}
         engine.cleanup_resources()
-        with open(os.path.join(log_dir, "segmentation_log.txt")) as f:
-            reason = [line.strip() for line in f if "error" in line]
-        log({"phase": "config_f32", "refused": refused, "reason": reason})
-        if not refused or not any("ROADMAP.md" in r for r in reason):
-            raise AssertionError(f"float32 on CUDA: refused {refused}, "
-                                 f"reason {reason}")
+        forwards = eng.forwards - forwards0
+        log({"phase": "config_f32", "processed": ok, "failed": failed,
+             "forwards": forwards, "launches": launches})
+        want = dict.fromkeys(launches, 0)
+        want["conv3x3_bias_act_f32"] = (4 * f32_cfg.depth + 2) * forwards
+        if (ok, failed) != (len(paths), 0) or launches != want:
+            raise AssertionError(f"float32 model: {ok} ok, {failed} failed, "
+                                 f"launches {launches}, want {want}")
 
 
 def reset_all_launches():
@@ -1198,30 +1248,32 @@ def all_launches() -> dict:
 
 @contextlib.contextmanager
 def plain_convs():
-    """The UNet's 3x3 convs through the conv's plain version (a float32
+    """The models' 3x3 convs through the conv's plain version (a float32
     conv, one cast) on any device: the reference that the TTA and window
     paths are held against, on the CPU for slim4 and on the card for the
-    flagship."""
-    from unetseg_tpu_torch.models import unet
+    flagship.  ``Conv3x3Function`` calls ``conv.conv3x3_bias_act``, so
+    the swap is made there."""
     from unetseg_tpu_torch.ops import conv
 
-    saved = unet.conv3x3_bias_act
-    unet.conv3x3_bias_act = conv.conv3x3_bias_act_plain
+    saved = conv.conv3x3_bias_act
+    conv.conv3x3_bias_act = conv.conv3x3_bias_act_plain
     try:
         yield
     finally:
-        unet.conv3x3_bias_act = saved
+        conv.conv3x3_bias_act = saved
 
 
 def convs_per_forward(model) -> dict:
     """Conv kernel launches of one ``UNet.forward`` by variant: every 3x3
     conv, the last level's included (the logits path takes no K6)."""
     from unetseg_tpu_torch.models.unet import Conv3x3
+    from unetseg_tpu_torch.ops import conv
 
-    out = {"conv3x3_bias_act": 0, "conv3x3_bias_act_small_c": 0}
+    out = {"conv3x3_bias_act": 0, "conv3x3_bias_act_small_c": 0,
+           "conv3x3_bias_act_f32": 0}
     for m in model.modules():
         if isinstance(m, Conv3x3):
-            out[variant(m.weight.shape[2])] += 1
+            out[conv.variant(m.weight.shape[2], m.weight.dtype)] += 1
     return out
 
 
@@ -1573,9 +1625,11 @@ BENCH_GATE = 0.999
 BENCH_TIMEOUT_S = 900
 # Kernel launches of one UNet.masks forward.
 MASKS_LAUNCHES = {"slim4": {"conv3x3_bias_act": 6,
-                            "conv3x3_bias_act_small_c": 4, "dec1_fused": 0},
+                            "conv3x3_bias_act_small_c": 4,
+                            "conv3x3_bias_act_f32": 0, "dec1_fused": 0},
                   "flagship": {"conv3x3_bias_act": 13,
                                "conv3x3_bias_act_small_c": 3,
+                               "conv3x3_bias_act_f32": 0,
                                "dec1_fused": 1}}
 
 
@@ -1860,7 +1914,7 @@ def cascade_pass_launches(router, post, student_model):
     and both routers the co-model's masks (slim4's geometry); the fallback
     its masks (the flagship: K6); 2 K3 per pass with device cleanup."""
     zero = {"conv3x3_bias_act": 0, "conv3x3_bias_act_small_c": 0,
-            "dec1_fused": 0, "cc_label": 0}
+            "conv3x3_bias_act_f32": 0, "dec1_fused": 0, "cc_label": 0}
     cleanup = {"cc_label": 2 if post else 0}
     student = (MASKS_LAUNCHES["slim4"] if router == "disagree" else
                convs_per_forward(student_model))
@@ -2503,9 +2557,11 @@ IMPORT_KW: dict = {}
 ZOO_AGREEMENT = {"unetpp": 0.99, "attention_unet": CPU_AGREEMENT}
 # K1 and K2 launches per forward of each family.
 ZOO_LAUNCHES = {"unetpp": {"conv3x3_bias_act": 23,
-                           "conv3x3_bias_act_small_c": 7},
+                           "conv3x3_bias_act_small_c": 7,
+                           "conv3x3_bias_act_f32": 0},
                 "attention_unet": {"conv3x3_bias_act": 14,
-                                   "conv3x3_bias_act_small_c": 4}}
+                                   "conv3x3_bias_act_small_c": 4,
+                                   "conv3x3_bias_act_f32": 0}}
 
 
 def zoo_conv_shapes(torch, F, conv, dev, card):
@@ -2535,7 +2591,7 @@ def zoo_conv_shapes(torch, F, conv, dev, card):
         bound, f_ms, b_ms = conv_bound(shape, ZOO_BATCH)
         p = conv.tile_plan(ZOO_BATCH, *shape)
         log({"phase": "zoo_conv_time", "shape": [ZOO_BATCH, *shape],
-             "variant": variant(shape[2]), "bkc_bn_fold": [p.bkc, p.bn,
+             "variant": conv.variant(shape[2], torch.bfloat16), "bkc_bn_fold": [p.bkc, p.bn,
                                                            p.fold],
              "ms": k_ms, "library_ms": lib_ms, "bound_ms": bound,
              "share_of_bound": bound / k_ms, "flop_ms": f_ms, "byte_ms": b_ms,
@@ -2886,7 +2942,8 @@ K7_REPLACES = ("unetseg_tpu/quantize.py:223 (_conv_w8a8: "
 PEAK_INT8_OPS = 1979e12
 # K7 launches of one w8a8 slim4 forward: every 3x3 conv.
 W8A8_LAUNCHES = {"conv3x3_s8": 10, "conv3x3_bias_act": 0,
-                 "conv3x3_bias_act_small_c": 0, "dec1_fused": 0}
+                 "conv3x3_bias_act_small_c": 0, "conv3x3_bias_act_f32": 0,
+                 "dec1_fused": 0}
 
 
 def pool_clients(service, addr, paths, size, tmp, tag):
@@ -3322,6 +3379,829 @@ def w8a8_phase(torch, np, F, dev, card):
     return entry, launches_total
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-24: float32 serving (K8, P13) and training (P12)
+# ---------------------------------------------------------------------------
+
+F32_SOURCE = "unetseg_tpu_torch/csrc/conv3x3_f32.cu"
+# H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet), K8's
+# design (SIMT FMAs); bytes at PEAK_HBM_BYTES.
+PEAK_F32_FLOPS = 67e12
+# K8 against a float64 reference, relative to max |output|; and at most
+# F32_VS_LIBRARY times F.conv2d's own float32 error (TF32 off), or one f32
+# ulp of max |output| where F.conv2d's is 0.
+F32_TOL = 2e-5
+F32_VS_LIBRARY = 4
+# K8's parity shapes: every conv shape slim4, the flagship and the zoo serve
+# (at F32_PARITY_BATCH), and the tiling's edges (C = 1, 4, 48, 80, 96;
+# D = 48, 112; ragged B, H, W) at EDGE_BATCH.
+F32_SERVED_CONVS = sorted(set(SLIM4_CONVS + FLAGSHIP_CONVS + ZOO_NEW_CONVS
+                              + [STEM2_CONV]))
+F32_EDGE_CONVS = EDGE_CONVS + EXTRA_CONVS + [(9, 70, 1, 16), (5, 33, 4, 112)]
+F32_PARITY_BATCH = 2
+# The float32 main path: (model, batch, RAWs of its process_batch).
+F32_MODELS = {"flagship": (FLAGSHIP_BATCH, N_FLAGSHIP), "slim4": (128, 128)}
+# Card vs CPU float32 logits: within F32_LOGIT_TOL of max(1, max |logit|);
+# masks equal but where the CPU's top-2 gap is within F32_TIE of it.
+F32_LOGIT_TOL = 1e-4
+F32_TIE = 1e-3
+N_F32_ZOO = 32
+F32_ZOO_KW: dict = {}  # the zoo at full width and depth
+# Phase 23: the autograd Function on these shapes; train-to-serve at the
+# size of tests/test_train_to_serve.py.
+GRAD_TOL = {"float32": 2e-5, "bfloat16": RTOL}
+T2S_KW = dict(base_channels=8, depth=2, image_size=64,
+              compute_dtype="float32")
+T2S_STEPS = 150
+T2S_SERVED = 8
+# Phase 24: the flagship recipe (benchmarks/train_flagship.py) for a few
+# dozen steps; float32 and distillation steps at full width.
+TRAIN_STEPS = 30
+TRAIN_POOL = 128
+TRAIN_BATCH = 8
+F32_TRAIN_STEPS = 3
+DISTILL_STEPS = 5
+# The flagship's 3x3 convs in a training step: the 16 of FLAGSHIP_CONVS and
+# the last level's two (the logits path runs them outside K6).
+TRAIN_LAST_CONVS = LOGITS_CONVS + [(512, 512, 64, 64)]
+
+
+def f32_inputs(torch, shape, batch, device, seed):
+    h, w, c, d = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((batch, h, w, c), generator=g, device=device)
+    wt = torch.randn((3, 3, c, d), generator=g, device=device) / (9 * c) ** 0.5
+    b = torch.randn((d,), generator=g, device=device) * 0.1
+    return x, wt, b
+
+
+def f32_bound(shape, batch):
+    """(bound ms, flop ms, byte ms) of one float32 conv: its operations at
+    the float32 SIMT rate, each input read once and the output written
+    once."""
+    h, w, c, d = shape
+    m = batch * h * w
+    f_ms = 2.0 * m * d * 9 * c / PEAK_F32_FLOPS * 1e3
+    b_ms = 4.0 * (m * c + 9 * c * d + d + m * d) / PEAK_HBM_BYTES * 1e3
+    return max(f_ms, b_ms), f_ms, b_ms
+
+
+def check_k8(torch, conv, dev, shapes, batch, seed0, relu=True):
+    """K8 against its plain version (cuDNN float32, TF32 off) and both
+    against a float64 reference.  Returns max |K8 - plain|."""
+    worst = 0.0
+    rows = []
+    for i, shape in enumerate(shapes):
+        x, w, b = f32_inputs(torch, shape, batch, dev, seed0 + i)
+        got = conv.conv3x3_bias_act(x, w, b, relu)
+        plain = conv.conv3x3_bias_act_plain(x, w, b, relu)
+        ref = conv.conv3x3_bias_act_plain(x.double(), w.double(), b.double(),
+                                          relu)
+        torch.cuda.synchronize()
+        scale = max(float(ref.abs().max()), 1e-30)
+        k_err = float((got.double() - ref).abs().max())
+        p_err = float((plain.double() - ref).abs().max())
+        worst = max(worst, float((got - plain).abs().max()))
+        rows.append([batch, *shape, k_err / scale, p_err / scale])
+        if not (k_err <= F32_TOL * scale and
+                k_err <= max(F32_VS_LIBRARY * p_err, 2.0 ** -24 * scale)):
+            raise AssertionError(
+                f"K8 {[batch, *shape]}: error {k_err} against float64 "
+                f"(max |out| {scale}); F.conv2d's {p_err}")
+        del x, w, b, got, plain, ref
+    log({"phase": "k8_parity", "relu": relu, "max_abs_err": worst,
+         "batch_h_w_c_d_k8_err_f_conv2d_err": rows})
+    return worst
+
+
+def k8_times(torch, F, conv, dev, shapes, batch, card, tag):
+    """K8, the plain version and F.conv2d (float32, channels-last, TF32
+    off) per shape at ``batch``, beside the bound; returns their sums."""
+    acc = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                         "flop_ms", "byte_ms"), 0.0)
+    for i, shape in enumerate(shapes):
+        x, w, b = f32_inputs(torch, shape, batch, dev, 700 + i)
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        k_ms = time_ms(torch, lambda: conv.conv3x3_bias_act(x, w, b), 3, 1)
+        lib_ms = time_ms(torch, lambda: F.conv2d(xc, wc, b, padding=1), 3, 1)
+        plain_ms = time_ms(torch, lambda: conv.conv3x3_bias_act_plain(
+            x, w, b), 2, 1)
+        bound, f_ms, b_ms = f32_bound(shape, batch)
+        log({"phase": "k8_time", "model": tag, "shape": [batch, *shape],
+             "ms": k_ms, "library_ms": lib_ms, "plain_ms": plain_ms,
+             "bound_ms": bound, "share_of_bound": bound / k_ms,
+             "tflops": 2.0 * batch * shape[0] * shape[1] * shape[2]
+             * shape[3] * 9 / k_ms / 1e9, **card})
+        for key, val in (("ms", k_ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("bound_ms", bound),
+                         ("flop_ms", f_ms), ("byte_ms", b_ms)):
+            acc[key] += val
+        del x, w, b, xc, wc
+    torch.cuda.empty_cache()
+    log({"phase": "k8_per_forward", "model": tag, "batch": batch, **acc,
+         **card})
+    return acc
+
+
+def f32_checkpoint(torch, np, src, dst, dev, raw_paths=None, **kw):
+    """``src`` re-configured to float32 (``kw`` more config changes) at
+    ``dst``; with ``raw_paths`` the head bias centred on their logits."""
+    import dataclasses
+
+    from unetseg_tpu_torch import checkpoint
+    from unetseg_tpu_torch.io import native, raw as raw_io
+    from unetseg_tpu_torch.models import registry
+    from unetseg_tpu_torch.ops import preprocess
+
+    params, cfg = checkpoint.load(src)
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    checkpoint.save(dst, params, dataclasses.replace(
+        cfg, compute_dtype="float32", **kw))
+    if raw_paths:
+        centre_head_bias(torch, checkpoint, registry, native, raw_io,
+                         preprocess, dst, raw_paths, 768, dev)
+    return dst
+
+
+def counted_run(torch, what, fn, engines, per_forward, device_post=False):
+    """``fn()`` with the counters set to 0 just before it: every forward
+    of ``engines()`` launches ``per_forward`` (K8 only), no K6, K3 only
+    with device cleanup.  Returns the launches."""
+    reset_all_launches()
+    before = sum(e.forwards for e in engines())
+    fn()
+    torch.cuda.synchronize()
+    launches = all_launches()
+    fwd = sum(e.forwards for e in engines()) - before
+    want = {k: v * fwd for k, v in per_forward.items()}
+    want["dec1_fused"] = 0
+    log({"phase": "f32_entry_point", "what": what, "forwards": fwd,
+         "launches": launches})
+    if fwd < 1 or {k: launches[k] for k in want} != want or \
+            bool(launches["cc_label"]) != device_post:
+        raise AssertionError(f"float32 {what}: {fwd} forwards, launches "
+                             f"{launches}, want {want}")
+    return launches
+
+
+def f32_model(torch, np, name, ckpt, bf16_ckpt, paths, tiled_raw, batch, tmp,
+              dev, card):
+    """Phase 22 for one float32 model: every entry point (process_batch,
+    process_single_image plain, TTA, windows and with device cleanup,
+    run_study, the TCP service, the REPL), launches exact, artifacts
+    byte-equal where two paths serve the same slice; logits and masks
+    against the CPU path; ms per batch beside bf16's.  Returns the counted
+    runs' launches."""
+    import io
+
+    from unetseg_tpu_torch import checkpoint, cli, engine, service
+    from unetseg_tpu_torch.io import native, raw as raw_io
+    from unetseg_tpu_torch.models import registry
+    from unetseg_tpu_torch.ops import preprocess
+    from unetseg_tpu_torch.parallel import pipeline
+
+    params, cfg = checkpoint.load(ckpt)
+    size, n = 768, len(paths)
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def global_engine():
+        eng = engine.get_engine()
+        return [eng] if eng is not None else []
+
+    if not engine.initialize_engine(ckpt, log_dir=os.path.join(tmp, "log")):
+        raise AssertionError(f"{name} f32: initialize_engine returned False")
+    model = engine.get_engine().model
+    per_fwd = convs_per_forward(model)
+    if model.route != "unfused" or per_fwd["conv3x3_bias_act_f32"] != \
+            sum(per_fwd.values()):
+        raise AssertionError(f"{name} f32: route {model.route}, {per_fwd}")
+    outs = {k: os.path.join(tmp, f"{name}_f32_{k}") for k in
+            ("batch", "single", "tta", "tiled", "study", "svc", "repl",
+             "single_device")}
+    add(counted_run(torch, "process_batch", lambda: engine.process_batch(
+        paths, size, size, [outs["batch"]] * n, batch_size=batch,
+        tier="full"), global_engine, per_fwd))
+    for base in ("slice_003", "slice_005", "slice_006"):
+        check_artifacts(outs["batch"], base)
+    add(counted_run(torch, "process_single_image",
+                    lambda: engine.process_single_image(
+                        paths[3], size, size, outs["single"]),
+                    global_engine, per_fwd))
+    compare_dirs(outs["batch"], outs["single"], sorted(os.listdir(
+        outs["single"])))
+    add(counted_run(torch, "tta", lambda: engine.process_single_image(
+        paths[3], size, size, outs["tta"], tta=True), global_engine,
+        per_fwd))
+    check_artifacts(outs["tta"], "slice_003")
+    h, w = TILED_RAW
+    add(counted_run(torch, "window", lambda: engine.process_single_image(
+        tiled_raw, w, h, outs["tiled"], window=TILED_WINDOW),
+        global_engine, per_fwd))
+    engine.cleanup_resources()
+
+    if not engine.initialize_engine(ckpt, log_dir=os.path.join(tmp, "log"),
+                                    device_postprocess=True):
+        raise AssertionError(f"{name} f32: initialize_engine(device post)")
+    add(counted_run(torch, "process_single_image device cleanup",
+                    lambda: engine.process_single_image(
+                        paths[3], size, size, outs["single_device"]),
+                    global_engine, per_fwd, device_post=True))
+    engine.cleanup_resources()
+    compare_dirs(outs["single"], outs["single_device"],
+                 sorted(os.listdir(outs["single"])))
+
+    pipeline.study_engine(params, cfg, dev, False).compile(batch)
+    add(counted_run(torch, "run_study", lambda: pipeline.run_study(
+        params, cfg, paths, size, size, batch_size=batch,
+        host_preprocess=True, artifacts="full", out_dir=outs["study"],
+        device=dev), lambda: [pipeline.study_engine(params, cfg, dev, False)],
+        per_fwd))
+    names = sorted(os.listdir(outs["batch"]))
+    if sorted(os.listdir(outs["study"])) != names:
+        raise AssertionError(f"{name} f32: run_study wrote other artifacts")
+    compare_dirs(outs["batch"], outs["study"], names)
+
+    svc = service.SegmentationService(port=0, device=str(dev))
+    addr = svc.start()
+    try:
+        def ask(req):
+            resp = service.request(addr, req, timeout=600)
+            if not resp.get("ok"):
+                raise AssertionError(f"{name} f32 service {req['cmd']}: "
+                                     f"{resp}")
+            return resp
+        ask({"cmd": "init", "cache": ckpt})
+        add(counted_run(torch, "service", lambda: ask(
+            {"cmd": "process", "path": paths[5], "width": size,
+             "height": size, "output_dir": outs["svc"]}), global_engine,
+            per_fwd))
+        ask({"cmd": "shutdown"})
+    finally:
+        svc.stop()
+    compare_dirs(outs["batch"], outs["svc"], sorted(os.listdir(outs["svc"])))
+
+    # The REPL builds and drops its own engine: its launches are whole
+    # forwards (warm-up and the slice) of K8 alone.
+    script = io.StringIO(f"init {ckpt}\nprocess {paths[6]} {size} {size} "
+                         f"{outs['repl']}\nexit\n")
+    reset_all_launches()
+    cli.repl(script, device=str(dev))
+    torch.cuda.synchronize()
+    launches = all_launches()
+    n_k8 = per_fwd["conv3x3_bias_act_f32"]
+    log({"phase": "f32_entry_point", "what": "repl", "launches": launches})
+    if launches["conv3x3_bias_act_f32"] < 2 * n_k8 or \
+            launches["conv3x3_bias_act_f32"] % n_k8 or sum(
+                launches.values()) != launches["conv3x3_bias_act_f32"]:
+        raise AssertionError(f"{name} f32 REPL: launches {launches}")
+    add(launches)
+    got = sorted(os.listdir(outs["repl"]))
+    if [f for f in names if f.startswith("slice_006")] != got:
+        raise AssertionError(f"{name} f32 REPL wrote {got}")
+    compare_dirs(outs["batch"], outs["repl"], got)
+
+    # Logits and masks on two slices against the CPU path.
+    u8 = torch.from_numpy(np.stack([native.preprocess_u8(np.asarray(
+        raw_io.read_raw(p, size, size)), cfg.image_size)
+        for p in (paths * (batch // n + 1))[:batch]]))
+    eng = engine.InferenceEngine(params, cfg, dev)
+    x2 = preprocess.model_input_from_u8(u8[:2])[..., None]
+    cpu_model = registry.build(params, cfg, device="cpu")
+    with torch.inference_mode():
+        got_lg = eng.model(x2.to(dev)).cpu()
+        want_lg = cpu_model(x2)
+    scale = max(1.0, float(want_lg.abs().max()))
+    lg_err = float((got_lg - want_lg).abs().max())
+    top2 = want_lg.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = got_lg.argmax(-1) != want_lg.argmax(-1)
+    ties_ok = bool((gap[differ] <= F32_TIE * scale).all())
+    del cpu_model
+
+    # ms per batch beside bf16's, in turns; the device time by kernel.
+    bparams, bcfg = checkpoint.load(bf16_ckpt)
+    beng = engine.InferenceEngine(bparams, bcfg, dev)
+    u8_d = u8.to(dev)
+    times = {"float32": [], "bfloat16": []}
+    for label, e in (("float32", eng), ("bfloat16", beng), ("bfloat16", beng),
+                     ("float32", eng)):
+        times[label].append(time_ms(torch, lambda: e._pipeline(u8_d), 3, 1))
+    prof = profile_pipeline(torch, lambda: eng._pipeline(u8_d), iters=2,
+                            top=8)
+    del prof["ops"]
+    log({"phase": "f32_model", "model": name, "batch": batch,
+         "logit_max_abs_err": lg_err, "logit_scale": scale,
+         "mask_differing_pixels": int(differ.sum()),
+         "differing_within_tie": ties_ok,
+         "ms_per_batch": times, "slices_per_s": {
+             k: [batch / t * 1e3 for t in v] for k, v in times.items()},
+         "profile": prof, "tf32": [torch.backends.cudnn.allow_tf32,
+                                   torch.backends.cuda.matmul.allow_tf32],
+         **card})
+    if not (got_lg.shape == want_lg.shape and torch.isfinite(got_lg).all()
+            and lg_err <= F32_LOGIT_TOL * scale and ties_ok):
+        raise AssertionError(f"{name} f32: logits {lg_err} off (scale "
+                             f"{scale}), masks differ beyond ties at "
+                             f"{int(differ.sum())} pixels")
+    del eng, beng, u8_d
+    torch.cuda.empty_cache()
+    return total
+
+
+def f32_phase(torch, np, F, dev, card):
+    """Phase 22: K8 against its plain version and float64 on every served
+    shape and the tiling's edges; its times; the float32 flagship and slim4
+    through every entry point; the cascade; UNet++ and Attention U-Net in
+    float32 through process_batch.  Returns (K8's record for the kernels
+    line, the counted runs' launches)."""
+    from unetseg_tpu_torch import checkpoint, engine
+    from unetseg_tpu_torch.config import ModelConfig
+    from unetseg_tpu_torch.data import synth_slice
+    from unetseg_tpu_torch.io import raw as raw_io
+    from unetseg_tpu_torch.ops import conv
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on: the float32 path and its "
+                             "yardsticks must run in full float32")
+    err = check_k8(torch, conv, dev, F32_SERVED_CONVS, F32_PARITY_BATCH, 800)
+    err = max(err, check_k8(torch, conv, dev, F32_EDGE_CONVS, EDGE_BATCH,
+                            900))
+    err = max(err, check_k8(torch, conv, dev, F32_EDGE_CONVS[:3], EDGE_BATCH,
+                            950, relu=False))
+    slim4_sum = k8_times(torch, F, conv, dev, SLIM4_CONVS, 128, card,
+                         "slim4")
+    k8_times(torch, F, conv, dev, FLAGSHIP_CONVS, FLAGSHIP_BATCH, card,
+             "flagship")
+    total: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        bf16_flag, paths = flagship_checkpoint(torch, np, tmp, dev)
+        ckpts = {"flagship": f32_checkpoint(
+            torch, np, bf16_flag, os.path.join(tmp, "models", "flag32.ckpt"),
+            dev, paths[:4]),
+            "slim4": f32_checkpoint(torch, np, CKPT, os.path.join(
+                tmp, "models", "slim32.ckpt"), dev)}
+        bf16 = {"flagship": bf16_flag, "slim4": CKPT}
+        h, w = TILED_RAW
+        tiled = os.path.join(tmp, "tiled.raw")
+        raw_io.write_raw(tiled, synth_slice(np.random.default_rng(41),
+                                            max(h, w))[0][:h, :w])
+        more = study_raws(np, os.path.join(tmp, "in_f32"),
+                          max(n for _, n in F32_MODELS.values()), 768)
+        for name, (batch, n) in F32_MODELS.items():
+            t0 = time.perf_counter()
+            launches = f32_model(torch, np, name, ckpts[name], bf16[name],
+                                 more[:n], tiled, batch, tmp, dev, card)
+            log({"phase": "f32_seconds", "model": name,
+                 "seconds": time.perf_counter() - t0})
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+
+        # The cascade: the float32 slim4 student, the float32 flagship its
+        # fallback, process_batch: one student and one fallback pass.
+        # (margin router, a threshold every slice is below: all route)
+        if not engine.initialize_engine(
+                ckpts["slim4"], log_dir=os.path.join(tmp, "log"),
+                cascade_ckpt=ckpts["flagship"], cascade_threshold=1e9):
+            raise AssertionError("f32 cascade: initialize_engine failed")
+        eng = engine.get_engine()
+        reset_all_launches()
+        ok, failed = engine.process_batch(
+            more[:FLAGSHIP_BATCH], 768, 768,
+            [os.path.join(tmp, "cascade")] * FLAGSHIP_BATCH,
+            batch_size=FLAGSHIP_BATCH)
+        torch.cuda.synchronize()
+        launches = all_launches()
+        engine.cleanup_resources()
+        log({"phase": "f32_cascade", "processed": ok, "failed": failed,
+             "forwards": eng.forwards, "launches": launches})
+        k8_fwd = sum(4 * checkpoint.load(ckpts[m])[1].depth + 2
+                     for m in ("slim4", "flagship"))  # one pass of each
+        if (ok, failed) != (FLAGSHIP_BATCH, 0) or \
+                launches["conv3x3_bias_act_f32"] != k8_fwd or \
+                launches["conv3x3_bias_act"] or \
+                launches["conv3x3_bias_act_small_c"] or launches["dec1_fused"]:
+            raise AssertionError(f"f32 cascade: {ok} ok, {failed} failed, "
+                                 f"launches {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+        # The zoo in float32 through process_batch.
+        for arch in ("unetpp", "attention_unet"):
+            ckpt = os.path.join(tmp, "models", f"{arch}32.ckpt")
+            checkpoint.create(ckpt, ModelConfig(arch=arch,
+                                                compute_dtype="float32",
+                                                **F32_ZOO_KW), seed=0)
+            if not engine.initialize_engine(ckpt, log_dir=os.path.join(
+                    tmp, "log")):
+                raise AssertionError(f"{arch} f32: initialize_engine failed")
+            per_fwd = convs_per_forward(engine.get_engine().model)
+            out = os.path.join(tmp, f"{arch}_f32")
+            t0 = time.perf_counter()
+            add = counted_run(
+                torch, f"{arch} process_batch", lambda: engine.process_batch(
+                    more[:N_F32_ZOO], 768, 768, [out] * N_F32_ZOO,
+                    batch_size=ZOO_BATCH), lambda: [engine.get_engine()],
+                per_fwd)
+            log({"phase": "f32_zoo", "model": arch, "slices": N_F32_ZOO,
+                 "batch": ZOO_BATCH, "wall_s": time.perf_counter() - t0,
+                 "artifacts": len(os.listdir(out)), **card})
+            engine.cleanup_resources()
+            if len(os.listdir(out)) < 3 * N_F32_ZOO:
+                raise AssertionError(f"{arch} f32: artifacts missing")
+            for k, v in add.items():
+                total[k] = total.get(k, 0) + v
+    k8 = {"name": "conv3x3_bias_act_f32", "route": "cuda",
+          "source": F32_SOURCE, "replaces": REPLACES["conv3x3_bias_act"],
+          "launches": total.get("conv3x3_bias_act_f32", 0),
+          "max_abs_err": err, "ms": slim4_sum["ms"],
+          "plain_ms": slim4_sum["plain_ms"],
+          "bound_ms": slim4_sum["bound_ms"],
+          "bound_by": ("operations" if slim4_sum["flop_ms"] >=
+                       slim4_sum["byte_ms"] else "bytes"),
+          "library_ms": slim4_sum["library_ms"]}
+    total.pop("conv3x3_bias_act_f32", None)
+    return k8, total
+
+
+def grad_parity(torch, conv, dev, shapes, batch, dtype, seed0):
+    """``Conv3x3Function``'s output, dx, dw and db against autograd through
+    the plain version, per shape, with ReLU; the worst error relative to
+    max |value|.  The reference and its ReLU mask are the plain version's
+    own.  Where the plain output lies within the tolerance of 0, the
+    kernel's rounding may put it on the other side of the ReLU, so the
+    cotangent is zeroed there on both sides: those pixels drop out of
+    every gradient, and the output check still holds them to the
+    tolerance."""
+    worst = {"dx": 0.0, "dw": 0.0, "db": 0.0, "y": 0.0}
+    tol = GRAD_TOL[str(dtype).split(".")[-1]]
+    for i, shape in enumerate(shapes):
+        x, w, b = (t.to(dtype) for t in f32_inputs(torch, shape, batch, dev,
+                                                   seed0 + i))
+        r = torch.randn((batch, *shape[:2], shape[3]), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(i))
+        ins = [[t.clone().requires_grad_(True) for t in (x, w, b)]
+               for _ in range(2)]
+        y_ref = conv.conv3x3_bias_act_plain(*ins[1], relu=True)
+        with torch.no_grad():
+            lin = conv.conv3x3_bias_act_plain(x, w, b, relu=False).float()
+            r = torch.where(lin.abs() <= tol * lin.abs().max(), 0, r)
+        (y_ref.float() * r).sum().backward()
+        y = conv.conv3x3_bias_act_train(*ins[0])
+        (y.float() * r).sum().backward()
+        pairs = {"y": (y, y_ref)}
+        pairs.update({k: (a.grad, e.grad) for k, a, e in
+                      zip(("dx", "dw", "db"), ins[0], ins[1])})
+        for k, (a, e) in pairs.items():
+            a, e = a.detach().float(), e.detach().float()
+            rel = float((a - e).abs().max()) / max(float(e.abs().max()),
+                                                   1e-30)
+            worst[k] = max(worst[k], rel)
+        if max(worst.values()) > tol:
+            raise AssertionError(f"conv Function {dtype} {[batch, *shape]}: "
+                                 f"errors {worst} (tol {tol})")
+        del x, w, b, r, ins, y, y_ref, lin, pairs
+    log({"phase": "grad_parity", "dtype": str(dtype), "shapes": len(shapes),
+         "batch": batch, "worst_relative_err": worst, "tol": tol})
+    torch.cuda.empty_cache()
+
+
+def train_phase(torch, np, F, dev, card):
+    """Phase 23: the conv under autograd against autograd through the plain
+    version; train-to-serve at tests/test_train_to_serve.py's size and
+    asserts, served on the card against the CPU engine; a save/load resume
+    against an uninterrupted run; the dp step against the one-device step.
+    Returns the counted runs' launches and data-gradient launches."""
+    from unetseg_tpu_torch import checkpoint, engine, train
+    from unetseg_tpu_torch.config import ModelConfig
+    from unetseg_tpu_torch.data import synth_slice, training_batch
+    from unetseg_tpu_torch.io import raw as raw_io
+    from unetseg_tpu_torch.ops import conv
+    from unetseg_tpu_torch.parallel import mesh as pmesh
+
+    shapes = F32_SERVED_CONVS
+    for dtype in (torch.float32, torch.bfloat16):
+        grad_parity(torch, conv, dev, shapes, F32_PARITY_BATCH, dtype, 1000)
+        grad_parity(torch, conv, dev, F32_EDGE_CONVS, EDGE_BATCH, dtype, 1100)
+
+    cfg = ModelConfig(**T2S_KW)
+    convs = 4 * cfg.depth + 2
+    tx = train.make_optimizer(lr=1e-2, total_steps=T2S_STEPS)
+    rng = np.random.default_rng(0)
+    state = train.init_state(0, cfg, tx, device=dev)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(T2S_STEPS):
+        state, loss = train.train_step(state, training_batch(rng, 8, 64),
+                                       cfg, tx)
+        losses.append(float(loss))
+    t2s_s = time.perf_counter() - t0
+    imgs, labels = training_batch(rng, 8, 64)
+    pred = train.predict_masks(state.params, cfg, imgs)
+    torch.cuda.synchronize()
+    launches, dgrad = all_launches(), dict(conv.DGRAD_LAUNCHES)
+    inter = np.logical_and(pred == 2, labels == 2).sum()
+    iou = inter / max(np.logical_or(pred == 2, labels == 2).sum(), 1)
+    want_k8 = T2S_STEPS * (2 * convs - 1) + convs
+    log({"phase": "train_to_serve", "steps": T2S_STEPS, "seconds": t2s_s,
+         "ms_per_step": t2s_s / T2S_STEPS * 1e3, "loss_first": losses[0],
+         "loss_last": losses[-1], "losses_every_25": losses[::25],
+         "held_out_iou": float(iou), "launches": launches,
+         "dgrad_launches": dgrad, **card})
+    if not losses[-1] < 0.3 * losses[0] or not iou > 0.75:
+        raise AssertionError(f"train-to-serve: loss {losses[0]} -> "
+                             f"{losses[-1]}, held-out IoU {iou}")
+    if launches["conv3x3_bias_act_f32"] != want_k8 or \
+            dgrad["conv3x3_bias_act_f32"] != T2S_STEPS * (convs - 1) or \
+            launches["conv3x3_bias_act"] or \
+            launches["conv3x3_bias_act_small_c"]:
+        raise AssertionError(f"train-to-serve launches {launches}, dgrad "
+                             f"{dgrad}: want {want_k8} K8, "
+                             f"{T2S_STEPS * (convs - 1)} of them dgrad")
+    total = dict(launches)
+    dgrad_total = dict(dgrad)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "eng", "trained.ckpt")
+        os.makedirs(os.path.dirname(ckpt))
+        checkpoint.save(ckpt, checkpoint.params_to_jax(state.params), cfg)
+        paths = []
+        for i in range(T2S_SERVED):
+            paths.append(os.path.join(tmp, "in", f"case_{i:02d}.raw"))
+            os.makedirs(os.path.dirname(paths[-1]), exist_ok=True)
+            raw_io.write_raw(paths[-1], synth_slice(rng, 64)[0])
+        dirs = {}
+        for where in ("cuda", "cpu"):
+            dirs[where] = os.path.join(tmp, where)
+            if not engine.initialize_engine(
+                    ckpt, log_dir=os.path.join(tmp, "log"),
+                    device=str(dev) if where == "cuda" else "cpu"):
+                raise AssertionError(f"trained model: initialize on {where}")
+            ok, failed = engine.process_batch(paths, 64, 64,
+                                              [dirs[where]] * len(paths))
+            engine.cleanup_resources()
+            if (ok, failed) != (len(paths), 0):
+                raise AssertionError(f"trained model on {where}: {ok} ok")
+        from unetseg_tpu_torch.io import png
+
+        same = 0
+        for p in paths:
+            base = os.path.basename(p)[:-len(".raw")]
+            masks = [png.read_png_gray(os.path.join(dirs[d], base +
+                                                    "_mask.png"))
+                     for d in ("cuda", "cpu")]
+            if np.array_equal(*masks):
+                same += 1
+                names = sorted(f for f in os.listdir(dirs["cpu"])
+                               if f.startswith(base))
+                if names != sorted(f for f in os.listdir(dirs["cuda"])
+                                   if f.startswith(base)):
+                    raise AssertionError(f"{base}: artifact sets differ")
+                compare_dirs(dirs["cuda"], dirs["cpu"],
+                             [f for f in names if f.endswith(".json")])
+        log({"phase": "train_to_serve_served", "slices": len(paths),
+             "masks_equal_card_cpu": same})
+        if same < len(paths) - 1:
+            raise AssertionError(f"trained model: card and CPU masks equal "
+                                 f"on {same} of {len(paths)} slices")
+
+        # save_state / load_state against an uninterrupted run
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            batches = [training_batch(np.random.default_rng(70 + i), 8, 64)
+                       for i in range(4)]
+            straight = train.init_state(3, cfg, tx, device=dev)
+            part = straight
+            for b in batches:
+                straight, _ = train.train_step(straight, b, cfg, tx,
+                                               boundary_boost=2.0)
+            for b in batches[:2]:
+                part, _ = train.train_step(part, b, cfg, tx,
+                                           boundary_boost=2.0)
+            path = os.path.join(tmp, "mid.state")
+            train.save_state(path, part, cfg)
+            resumed, rcfg = train.load_state(path, tx, device=dev)
+            for b in batches[2:]:
+                resumed, _ = train.train_step(resumed, b, rcfg, tx,
+                                              boundary_boost=2.0)
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        equal = all(torch.equal(resumed.params[k], straight.params[k])
+                    for k in straight.params)
+        log({"phase": "train_resume", "steps": 4, "bit_equal": equal})
+        if not equal or resumed.step != straight.step:
+            raise AssertionError("resume from save_state/load_state differs "
+                                 "from the uninterrupted run")
+
+    # the dp step over two positions of the card against the one-device
+    # step: the gradients and the losses of three steps.  (The parameters
+    # are logged, not held: Adam divides by sqrt(nu), so where a gradient
+    # is near 0 its last bits, summed in another order, move that
+    # element's update by up to the learning rate.)
+    batch = training_batch(np.random.default_rng(80), 8, 64)
+    kw = dict(boundary_boost=2.0)
+    s1 = s2 = train.init_state(4, cfg, tx, device=dev)
+    g1 = train.loss_and_grads(s1.params, batch, cfg, devices=[dev], **kw)[1]
+    g2 = train.loss_and_grads(s1.params, batch, cfg, devices=[dev, dev], **kw)[1]
+    g_err = max(float((g2[k] - g1[k]).abs().max()) /
+                max(float(g1[k].abs().max()), 1e-30) for k in g1)
+    one = train.make_sharded_train_step(
+        cfg, pmesh.make_mesh(devices=[dev]), tx, **kw)
+    two = train.make_sharded_train_step(
+        cfg, pmesh.make_mesh(devices=[dev, dev]), tx, **kw)
+    losses = []
+    for _ in range(3):  # the first update's learning rate is 0
+        s1, l1 = one(s1, batch)
+        s2, l2 = two(s2, batch)
+        losses.append([float(l1), float(l2)])
+    diff = torch.cat([(s2.params[k] - s1.params[k]).abs().flatten()
+                      for k in s1.params])
+    far = float((diff > 1e-6).float().mean())
+    log({"phase": "train_dp", "devices": [str(dev)] * 2, "losses": losses,
+         "grad_max_rel_err": g_err, "max_param_diff": float(diff.max()),
+         "share_of_params_off_by_1e-6": far})
+    if any(abs(a - b) > 1e-5 * abs(a) for a, b in losses) or g_err > 1e-4:
+        raise AssertionError(f"dp step: losses {losses}, gradients {g_err} "
+                             f"off")
+    return total, dgrad_total
+
+
+def step_kernel_times(torch, conv, dev, cfg, batch, card):
+    """Per flagship training step, by CUDA events on random inputs at the
+    step's shapes: the forward convs, their data gradients (K1/K2) and
+    their weight gradients (``conv2d_weight``, cuDNN)."""
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else \
+        torch.float32
+    shapes = FLAGSHIP_CONVS + TRAIN_LAST_CONVS
+    acc = {"forward_ms": 0.0, "dgrad_ms": 0.0, "wgrad_ms": 0.0}
+    for i, shape in enumerate(shapes):
+        x, w, b = (t.to(dtype) for t in f32_inputs(torch, shape, batch, dev,
+                                                   1200 + i))
+        g = torch.randn((batch, *shape[:2], shape[3]), device=dev).to(dtype)
+        acc["forward_ms"] += time_ms(
+            torch, lambda: conv.conv3x3_bias_act(x, w, b), 3, 1)
+        if i:  # the first conv reads data: no data gradient
+            acc["dgrad_ms"] += time_ms(torch,
+                                       lambda: conv.conv3x3_dgrad(g, w), 3, 1)
+        acc["wgrad_ms"] += time_ms(torch, lambda: conv.conv3x3_wgrad(x, g),
+                                   3, 1)
+        del x, w, b, g
+    torch.cuda.empty_cache()
+    log({"phase": "train_step_convs", "dtype": cfg.compute_dtype,
+         "batch": batch, "convs": len(shapes), **acc, **card})
+    return acc
+
+
+def train_flagship_phase(torch, np, F, dev, card):
+    """Phase 24: the flagship recipe (``benchmarks/train_flagship.py``:
+    bf16, remat, batch 8, lr 3e-4) at full width for TRAIN_STEPS steps,
+    the counters set to 0 just before it: ms per step, slices/s, peak
+    memory, the device time by kernel and idle share, the forward, dgrad
+    and wgrad times per step; the loss falls.  A few float32 flagship
+    steps, and distillation steps (slim4 the student, the seeded
+    flagship's logits the teacher).  Returns the counted runs' launches and
+    data-gradient launches."""
+    import dataclasses
+
+    from unetseg_tpu_torch import checkpoint, train
+    from unetseg_tpu_torch.benchmarks import train_flagship
+    from unetseg_tpu_torch.config import ModelConfig
+    from unetseg_tpu_torch.data import training_batch
+    from unetseg_tpu_torch.models import registry
+    from unetseg_tpu_torch.ops import conv
+
+    cfg = ModelConfig(remat=True, **FLAGSHIP_KW)
+    convs = 4 * cfg.depth + 2
+    per_step = 3 * convs - 3  # forward, remat (not the bottleneck), dgrad
+    total, dgrad_total = {}, {}
+
+    def add(launches, dgrad):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        for k, v in dgrad.items():
+            dgrad_total[k] = dgrad_total.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        res = train_flagship.run(TRAIN_STEPS, os.path.join(tmp, "fs.ckpt"),
+                                 batch=TRAIN_BATCH, n_train=TRAIN_POOL,
+                                 cfg=cfg, device=str(dev), log=log)
+        wall = time.perf_counter() - t0
+        launches, dgrad = all_launches(), dict(conv.DGRAD_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        served = checkpoint.load(os.path.join(tmp, "fs.ckpt"))[1]
+    losses = res["losses"]
+    k12 = launches["conv3x3_bias_act"] + launches["conv3x3_bias_act_small_c"]
+    val_fwd = -(-16 // TRAIN_BATCH)
+    log({"phase": "train_flagship", "steps": TRAIN_STEPS,
+         "batch": TRAIN_BATCH, "ms_per_step": res["ms_per_step"],
+         "slices_per_s": TRAIN_BATCH / res["ms_per_step"] * 1e3,
+         "wall_s": wall, "peak_memory_bytes": peak,
+         "loss_first5": float(np.mean(losses[:5])),
+         "loss_last5": float(np.mean(losses[-5:])), "losses": losses,
+         "val_fg_iou": res["val_fg_iou"], "launches": launches,
+         "dgrad_launches": dgrad, "served_config": dataclasses.asdict(served),
+         **card})
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]) or \
+            not all(np.isfinite(losses)):
+        raise AssertionError(f"flagship recipe: the loss did not fall "
+                             f"{losses}")
+    dg = dgrad["conv3x3_bias_act"] + dgrad["conv3x3_bias_act_small_c"]
+    if k12 != TRAIN_STEPS * per_step + val_fwd * convs or \
+            dg != TRAIN_STEPS * (convs - 1) or launches["dec1_fused"] or \
+            launches["conv3x3_bias_act_f32"] or served.remat:
+        raise AssertionError(f"flagship recipe launches {launches}, dgrad "
+                             f"{dgrad}: want {per_step} K1/K2 a step, "
+                             f"{convs - 1} of them dgrad")
+    add(launches, dgrad)
+    state = res.pop("state")
+    tx = train.make_optimizer(lr=3e-4, total_steps=TRAIN_STEPS)
+    imgs, labels = training_batch(np.random.default_rng(5), TRAIN_BATCH)
+    batch = (torch.from_numpy(imgs).to(dev), torch.from_numpy(labels).to(dev))
+    prof = profile_pipeline(torch, lambda: train.train_step(
+        state, batch, cfg, tx), iters=3, top=15)
+    del prof["ops"]
+    log({"phase": "train_flagship_profile", **prof, **card})
+    step_kernel_times(torch, conv, dev, cfg, TRAIN_BATCH, card)
+    del state, prof
+    torch.cuda.empty_cache()
+
+    # float32 flagship steps
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    tx = train.make_optimizer(lr=3e-4, total_steps=100)
+    st = train.init_state(0, f32, tx, device=dev)
+    st, _ = train.train_step(st, batch, f32, tx)  # warm-up
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    f32_losses = []
+    for _ in range(F32_TRAIN_STEPS):
+        st, loss = train.train_step(st, batch, f32, tx)
+        f32_losses.append(float(loss))
+    f32_ms = (time.perf_counter() - t0) / F32_TRAIN_STEPS * 1e3
+    launches, dgrad = all_launches(), dict(conv.DGRAD_LAUNCHES)
+    log({"phase": "train_flagship_f32", "steps": F32_TRAIN_STEPS,
+         "batch": TRAIN_BATCH, "ms_per_step": f32_ms,
+         "slices_per_s": TRAIN_BATCH / f32_ms * 1e3, "losses": f32_losses,
+         "launches": launches, "dgrad_launches": dgrad, **card})
+    if launches["conv3x3_bias_act_f32"] != F32_TRAIN_STEPS * per_step or \
+            dgrad["conv3x3_bias_act_f32"] != F32_TRAIN_STEPS * (convs - 1) \
+            or not all(np.isfinite(f32_losses)):
+        raise AssertionError(f"float32 flagship steps: {launches}, {dgrad}, "
+                             f"losses {f32_losses}")
+    add(launches, dgrad)
+    step_kernel_times(torch, conv, dev, f32, TRAIN_BATCH, card)
+    del st
+    torch.cuda.empty_cache()
+
+    # distillation: slim4 the student, the seeded flagship the teacher
+    s_params, s_cfg = checkpoint.load(CKPT)
+    s_tx = train.make_optimizer(lr=1e-4, total_steps=100)
+    student = train.state_from_params(s_params, s_tx, device=dev)
+    t_cfg = ModelConfig(**FLAGSHIP_KW)
+    teacher = train.state_from_params(registry.init(
+        t_cfg, torch.Generator().manual_seed(0)), s_tx, device=dev).params
+    t_logits = train.logits(teacher, t_cfg, batch[0])
+    student, _ = train.distill_step(student, (*batch, t_logits), s_cfg, s_tx,
+                                    boundary_boost=2.0)  # warm-up
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in training_batch(
+        np.random.default_rng(90 + i), TRAIN_BATCH))
+        for i in range(DISTILL_STEPS)]
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    d_losses = []
+    for x, labels in batches:
+        t_logits = train.logits(teacher, t_cfg, x)
+        student, loss = train.distill_step(
+            student, (x, labels, t_logits), s_cfg, s_tx, boundary_boost=2.0)
+        d_losses.append(float(loss))
+    d_ms = (time.perf_counter() - t0) / DISTILL_STEPS * 1e3
+    launches, dgrad = all_launches(), dict(conv.DGRAD_LAUNCHES)
+    s_convs = 4 * s_cfg.depth + 2
+    want = DISTILL_STEPS * (convs + 2 * s_convs - 1)
+    log({"phase": "train_distill", "steps": DISTILL_STEPS,
+         "batch": TRAIN_BATCH, "ms_per_step_with_teacher": d_ms,
+         "losses": d_losses, "launches": launches, "dgrad_launches": dgrad,
+         **card})
+    if launches["conv3x3_bias_act"] + launches["conv3x3_bias_act_small_c"] \
+            != want or not all(np.isfinite(d_losses)):
+        raise AssertionError(f"distill steps: launches {launches}, want "
+                             f"{want} K1/K2; losses {d_losses}")
+    add(launches, dgrad)
+    return total, dgrad_total
+
+
 def main() -> int:
     import torch
 
@@ -3365,10 +4245,11 @@ def main() -> int:
 
     # -- 2. build (every kernel and the host library, all at once) ----------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=7) as pool:
-        for fut in [pool.submit(lib.load) for lib in (
-                conv, cc_kernel, dec1, halo_copy, native, dec1_phases,
-                conv_s8)]:
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for fut in [pool.submit(load) for load in (
+                conv.load, conv.load_f32, cc_kernel.load, dec1.load,
+                halo_copy.load, native.load, dec1_phases.load,
+                conv_s8.load)]:
             fut.result()
     log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3)})
     for r in conv.resources():
@@ -3386,6 +4267,12 @@ def main() -> int:
     if len(cc_res) != 8 or any(r["spill_bytes"] for r in cc_res):
         raise AssertionError(f"K3: want 8 kernels without spills, got "
                              f"{cc_res}")
+    f32_res = conv.resources_f32()
+    for r in f32_res:
+        log({"phase": "f32_resources", **r})
+    if len(f32_res) != 1 or f32_res[0]["spill_bytes"]:
+        raise AssertionError(f"K8: want 1 kernel without spills, got "
+                             f"{f32_res}")
     s8_res = conv_s8.resources()
     for r in s8_res:
         log({"phase": "s8_resources", **r})
@@ -3620,7 +4507,7 @@ def main() -> int:
         plain_ms = time_ms(torch, lambda: conv.conv3x3_bias_act_plain(x, w, b),
                            5, warmup=1)
         bound, f_ms, b_ms = conv_bound(shape, batch)
-        v = variant(shape[2])
+        v = conv.variant(shape[2], torch.bfloat16)
         log({"phase": "conv_time", "shape": [batch, *shape], "variant": v,
              "ms": k_ms, "library_ms": lib_ms, "plain_ms": plain_ms,
              "bound_ms": bound, "flop_ms": f_ms, "byte_ms": b_ms,
@@ -3733,6 +4620,26 @@ def main() -> int:
         k["launches"] += pool_launches.get(k["name"], 0) + \
             w8a8_launches.get(k["name"], 0)
     kernels.append(k7)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    k8, f32_launches = f32_phase(torch, np, F, dev, card)
+    log({"phase": "f32_phase_seconds", "seconds": time.perf_counter() - t0})
+    kernels.insert(2, k8)
+    dgrad_launches: dict = {}
+    for phase in (train_phase, train_flagship_phase):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launches, dgrad = phase(torch, np, F, dev, card)
+        log({"phase": f"{phase.__name__}_seconds",
+             "seconds": time.perf_counter() - t0})
+        for k, v in launches.items():
+            f32_launches[k] = f32_launches.get(k, 0) + v
+        for k, v in dgrad.items():
+            dgrad_launches[k] = dgrad_launches.get(k, 0) + v
+    for k in kernels:
+        k["launches"] += f32_launches.get(k["name"], 0)
+        if k["name"] in dgrad_launches:
+            k["dgrad_launches"] = dgrad_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -127,16 +127,18 @@ def test_entry_points_default_to_cuda_and_fail_without_it(ckpt, tmp_path):
 
 
 def test_unported_modes_raise(ckpt, tmp_path):
-    """Only float32 on CUDA still raises with its ROADMAP item (P13); the
-    quantized arch (P11, whose convs are int8, so P13 is not its), the
-    other archs (P10), the cascade (P8), per-class JSON (P6), TTA and
-    sliding windows now serve."""
+    """No serving mode raises a ROADMAP item any more: float32 (P13, K8 on
+    the card) passes the dtype check and reaches the CUDA check, as the
+    quantized arch (P11) does; the other archs (P10), the cascade (P8),
+    per-class JSON (P6), TTA and sliding windows serve."""
     from unetseg_tpu_torch import quantize
     from unetseg_tpu_torch.data import training_batch
 
     params, cfg = checkpoint.load(ckpt)
-    with pytest.raises(NotImplementedError, match="P13"):
-        engine.InferenceEngine(params, cfg, device="cuda")
+    assert cfg.compute_dtype == "float32"
+    if not torch.cuda.is_available():  # past P13, to the CUDA check
+        with pytest.raises(RuntimeError, match="CUDA"):
+            engine.InferenceEngine(params, cfg, device="cuda")
     q_ckpt = str(tmp_path / "w8a8.ckpt")
     quantize.quantize_checkpoint(
         ckpt, q_ckpt, [training_batch(np.random.default_rng(3), 2, 64)[0]],

@@ -1,5 +1,5 @@
 """``unetseg_tpu_torch``, every submodule and ``chip_smoke.py`` import
-without JAX, flax, OpenCV or the JAX package."""
+without JAX, flax, optax, OpenCV or the JAX package."""
 
 import os
 import subprocess
@@ -15,8 +15,8 @@ names = [m.name for m in pkgutil.walk_packages(unetseg_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "unetseg_tpu",
-                                    "cv2"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "unetseg_tpu", "cv2"))
 print(len(names), bad, *names)
 """
 #: Modules of the later slices, named so the walk cannot miss them.
@@ -38,7 +38,9 @@ NEW_MODULES = ("unetseg_tpu_torch.ops.dec1", "unetseg_tpu_torch.ops.halo_copy",
                "unetseg_tpu_torch.parallel.mesh",
                "unetseg_tpu_torch.parallel.batch",
                "unetseg_tpu_torch.parallel.distributed",
-               "unetseg_tpu_torch.quantize", "unetseg_tpu_torch.ops.conv_s8")
+               "unetseg_tpu_torch.quantize", "unetseg_tpu_torch.ops.conv_s8",
+               "unetseg_tpu_torch.train",
+               "unetseg_tpu_torch.benchmarks.train_flagship")
 
 
 def test_port_imports_no_jax():
@@ -86,11 +88,20 @@ def test_port_sources_name_no_jax():
             os.path.join(root, "parallel", "batch.py"),
             os.path.join(root, "parallel", "distributed.py"),
             os.path.join(root, "quantize.py"),
-            os.path.join(root, "ops", "conv_s8.py")} <= set(sources)
+            os.path.join(root, "ops", "conv_s8.py"),
+            os.path.join(root, "train.py"),
+            os.path.join(root, "benchmarks", "train_flagship.py")} \
+        <= set(sources)
+    # the float32 kernel's wrapper (K8) is the conv module
+    from unetseg_tpu_torch.ops import conv
+
+    assert conv.SOURCE_F32 == os.path.join(root, "csrc", "conv3x3_f32.cu")
+    assert os.path.exists(conv.SOURCE_F32)
     for path in sources:
         src = open(path).read()
         for word in ("import jax", "from jax", "import flax",
-                     "from flax", "import cv2", "from cv2 import",
+                     "from flax", "import optax", "from optax",
+                     "import cv2", "from cv2 import",
                      "from unetseg_tpu ",
                      "from unetseg_tpu.", "import unetseg_tpu\n",
                      "import unetseg_tpu."):

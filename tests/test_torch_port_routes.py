@@ -6,8 +6,11 @@
    masks equal JAX ``unet.apply``'s argmax in float32.
 2. A conv with D not a multiple of 16 reaches the kernel with its weight's
    output columns and bias zero-padded, and is sliced back: exact.
-3. ``compute_dtype="float32"`` on CUDA is refused by ``registry.build`` with
-   a reason naming ROADMAP.md, and ``initialize_engine`` logs it.
+3. ``compute_dtype="float32"`` on CUDA was refused by ``registry.build``
+   (P13); the card now serves it through K8, so on a host without CUDA it
+   passes the dtype check and fails only the CUDA check, which
+   ``initialize_engine`` logs; float32 models take the unfused route (K6 is
+   bf16 only).
 """
 
 import dataclasses
@@ -140,11 +143,15 @@ def _f32_ckpt(tmp_path):
 def test_f32_on_cuda_is_refused_with_the_reason(tmp_path, monkeypatch):
     path = _f32_ckpt(tmp_path)
     params, cfg = checkpoint.load(path)
-    assert registry.build(params, cfg, device="cpu").head_weight.dtype \
-        == torch.float32
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError,
-                       match=r"float32.*ROADMAP\.md queue A, P13"):
+    model = registry.build(params, cfg, device="cpu")
+    assert model.head_weight.dtype == torch.float32
+    assert model.route == "unfused"  # K6 is bf16 only
+    assert unet.last_level_route(dataclasses.replace(
+        cfg, base_channels=64, compute_dtype="bfloat16")) == "fused"
+    assert unet.last_level_route(dataclasses.replace(
+        cfg, base_channels=64)) == "unfused"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         registry.build(params, cfg, device="cuda")
     log_dir = str(tmp_path / "log")
     assert not engine.initialize_engine(path, log_dir=log_dir)
@@ -154,4 +161,5 @@ def test_f32_on_cuda_is_refused_with_the_reason(tmp_path, monkeypatch):
         engine.cleanup_resources()
     text = "".join(open(f).read() for f in glob.glob(
         os.path.join(log_dir, "*.txt")))
-    assert "Initialization error" in text and "ROADMAP.md" in text
+    assert "Initialization error" in text and "CUDA" in text
+    assert "ROADMAP.md" not in text

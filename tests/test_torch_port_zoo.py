@@ -294,14 +294,18 @@ def test_registry_dispatch_and_refusals(monkeypatch):
     assert q_model.encoder[0].conv1.scale.dtype == torch.float32
     with pytest.raises(KeyError):
         registry.get("nope")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    # float32 passes build's dtype check (K8 serves it on the card) and
+    # reaches the CUDA check, which a host without CUDA fails
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for arch in ("unet", "unetpp", "attention_unet"):
         cfg = ModelConfig(arch=arch, base_channels=4, depth=1,
                           image_size=32, compute_dtype="float32")
         params = registry.init(cfg, torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError,
-                           match=r"float32.*ROADMAP\.md queue A, P13"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
             registry.build(params, cfg, device="cuda")
+        with pytest.raises(NotImplementedError, match="float16"):
+            registry.build(params, dataclasses.replace(
+                cfg, compute_dtype="float16"), device="cuda")
 
 
 @pytest.mark.parametrize("name", ["unetpp_ds_d2_b8", "attention_stem2_d2_b8"])

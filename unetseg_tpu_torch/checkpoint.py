@@ -283,6 +283,57 @@ def up_weight_from_hwio(w: np.ndarray) -> np.ndarray:
     return np.asarray(w)[::-1, ::-1].transpose(2, 0, 1, 3).reshape(c, 4 * o)
 
 
+def up_weight_to_hwio(m: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`up_weight_from_hwio`: the ``(C, 4*O)`` matmul
+    weight laid out (c, a, b, o) -> HWIO ``(2, 2, C, O)``."""
+    c, o = m.shape[0], m.shape[1] // 4
+    return np.ascontiguousarray(
+        np.asarray(m).reshape(c, 2, 2, o).transpose(1, 2, 0, 3)[::-1, ::-1])
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`params_from_jax` for the float families: the
+    port's state dict (any device) -> the JAX param pytree of float32 numpy
+    arrays.
+
+    A name's last part (``weight``, ``bias``; ``head_weight`` and
+    ``head_bias`` for the UNet's top-level head) picks ``w`` or ``b``; the
+    rest is the site's path.  A site named ``up`` is an up-conv (its
+    ``(C, 4*O)`` weight back to HWIO by :func:`up_weight_to_hwio`), any
+    other 2-D weight a 1x1 conv ``(1, 1, C, O)``; 3x3 weights are HWIO
+    already.  A node whose keys are all integers becomes a list, as the
+    JAX trees hold ``encoder``, ``decoder``, ``backbone`` and ``heads``;
+    UNet++'s ``nodes`` (keys ``"i_j"``) stay a dict."""
+    tree: dict = {}
+    for name, t in state.items():
+        if name in ("head_weight", "head_bias"):
+            path, leaf = ["head"], name[len("head_"):]
+        else:
+            *path, leaf = name.split(".")
+        if leaf not in ("weight", "bias") or not path:
+            raise ValueError(f"params_to_jax: {name!r} is not a float "
+                             f"family's weight or bias")
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            if path[-1] == "up":
+                a = up_weight_to_hwio(a)
+            elif a.ndim == 2:
+                a = a.reshape(1, 1, *a.shape)
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node["w" if leaf == "weight" else "b"] = np.array(a)
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return lists(tree)
+
+
 def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     """A JAX param pytree (numpy) of any float family -> the port's state
     dict (CPU tensors, stored dtype kept).
@@ -297,7 +348,10 @@ def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     * 1x1 convs ``(1, 1, C, O)`` become ``(C, O)`` products.
 
     The top-level ``head`` of the UNet and Attention U-Net trees is the
-    modules' ``head_weight`` / ``head_bias``.
+    modules' ``head_weight`` / ``head_bias``.  A list may also come as a
+    dict keyed ``"0"``, ``"1"``, ... (flax's state-dict form, in which
+    ``train.save_state`` writes the optimizer's moments): the names are the
+    same.  :func:`params_to_jax` is the inverse for the float families.
 
     A w8a8 site (``unet_w8a8``: a dict holding ``w_q``, ``w_scale``, ``b``,
     ``act_scale``; ``quantize.quantize_params``) becomes ``{path}.weight``

@@ -23,7 +23,6 @@ from unetseg_tpu_torch.checkpoint import params_from_jax
 from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.models import attention_unet, unet, unetpp
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class Family(NamedTuple):
@@ -72,20 +71,12 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 def build(params: dict, cfg: ModelConfig, device: str = "cuda") -> nn.Module:
     """The model for ``cfg`` with the JAX param pytree ``params`` loaded and
-    placed on ``device``: a float family cast to the compute dtype, the
-    quantized ``unet_w8a8`` as stored (int8 weights, f32 scales and biases;
-    its convs are int8, so the float32 refusal is not its)."""
+    placed on ``device``: a float family cast to the compute dtype (bf16
+    convs in K1/K2, float32 convs in K8 on the card), the quantized
+    ``unet_w8a8`` as stored (int8 weights, f32 scales and biases)."""
     family = get(cfg.arch)
-    if cfg.compute_dtype not in _DTYPES:
-        raise NotImplementedError(
-            f"compute_dtype {cfg.compute_dtype!r} is not ported")
+    dtype = unet.compute_dtype(cfg)
     device = torch.device(device)
-    if device.type == "cuda" and cfg.compute_dtype == "float32" and \
-            family.cast:
-        raise NotImplementedError(
-            "compute_dtype 'float32' has no conv kernel on CUDA yet "
-            "(ROADMAP.md queue A, P13: the float32 conv kernel); serve "
-            "bfloat16, or pass device='cpu'")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' "
                            "explicitly to run on the CPU")
@@ -93,4 +84,26 @@ def build(params: dict, cfg: ModelConfig, device: str = "cuda") -> nn.Module:
     model.load_state_dict(params_from_jax(params))
     if not family.cast:
         return model.to(device=device).eval()
-    return model.to(device=device, dtype=_DTYPES[cfg.compute_dtype]).eval()
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def trainable(cfg: ModelConfig, state: Dict[str, torch.Tensor]) -> nn.Module:
+    """The module of a float family for training, its parameters
+    ``requires_grad`` and not yet bound: the caller replaces each one with
+    the float32 tensor of the same name in ``state`` (the port's names,
+    ``checkpoint.params_from_jax``; ``train._bound``), whose head count
+    UNet++ reads.  Its ops cast the float32 parameters to
+    ``cfg.compute_dtype`` per call.  The quantized family is not
+    trainable, as in JAX."""
+    family = get(cfg.arch)
+    unet.compute_dtype(cfg)
+    if not family.cast:
+        raise NotImplementedError(
+            f"arch {cfg.arch!r} is not trainable: train the float model, "
+            "then quantize it (quantize.quantize_checkpoint)")
+    n_heads = sum(1 for k in state
+                  if k.startswith("heads.") and k.endswith(".weight"))
+    model = family.module(cfg, {"heads": [None] * n_heads})
+    for p in model.parameters():
+        p.requires_grad_(True)
+    return model

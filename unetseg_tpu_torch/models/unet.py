@@ -13,10 +13,17 @@ The other float families reuse these modules: ``models/attention_unet.py``
 subclasses :class:`UNet` with a gated decoder stage, ``models/unetpp.py``
 nests :class:`DoubleConv`, :class:`UpConv` and :class:`Conv1x1` nodes.
 
-The weights are cast once to the compute dtype when the module is moved
-(``module.to(dtype=...)``); JAX casts them per call, and both round each
-stored value once.  Bias adds of the up-conv and the head run in the compute
-dtype, and logits become float32 only at the end (unet.py:53-62, 224-227).
+The engine's modules hold their weights in the compute dtype, cast once
+when ``registry.build`` moves them (``module.to(dtype=...)``); JAX casts
+them per call, and both round each stored value once.  A module built for
+training (``registry.trainable``) holds float32 parameters and each op casts
+them to the compute dtype per call, as ``unet.apply`` does, so their
+gradients flow back through the cast; its 3x3 convs then run under
+autograd (``ops.conv.conv3x3_bias_act_train``), and with ``cfg.remat`` each
+encoder and decoder stage is recomputed in the backward pass
+(``torch.utils.checkpoint``), as JAX wraps them in ``jax.checkpoint``.
+Bias adds of the up-conv and the head run in the compute dtype, and logits
+become float32 only at the end (unet.py:53-62, 224-227).
 """
 
 from __future__ import annotations
@@ -27,11 +34,31 @@ from typing import Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unetseg_tpu_torch.config import ModelConfig
-from unetseg_tpu_torch.ops.conv import conv3x3_bias_act
+from unetseg_tpu_torch.ops.conv import conv3x3_bias_act_train
 from unetseg_tpu_torch.ops.dec1 import dec1_fused_masks, kernel_takes, up_conv
 from unetseg_tpu_torch.ops.decode import decode_mask
+
+
+#: ``ModelConfig.compute_dtype`` -> torch dtype (the ported ones).
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise NotImplementedError(
+            f"compute_dtype {cfg.compute_dtype!r} is not ported")
+    return COMPUTE_DTYPES[cfg.compute_dtype]
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, recomputed in the backward pass when ``cfg.remat`` and
+    gradients are being recorded (JAX's ``jax.checkpoint`` of a stage)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def stage_channels(cfg: ModelConfig) -> Sequence[int]:
@@ -69,7 +96,8 @@ class Conv3x3(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3x3_bias_act(x, self.weight, self.bias, relu=True)
+        return conv3x3_bias_act_train(x, self.weight.to(x.dtype),
+                                      self.bias.to(x.dtype), relu=True)
 
 
 class DoubleConv(nn.Module):
@@ -93,7 +121,7 @@ class UpConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return up_conv(x, self.weight, self.bias)
+        return up_conv(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class Conv1x1(nn.Module):
@@ -107,7 +135,7 @@ class Conv1x1(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.weight + self.bias
+        return x @ self.weight.to(x.dtype) + self.bias.to(x.dtype)
 
 
 class DecoderStage(nn.Module):
@@ -124,12 +152,14 @@ class DecoderStage(nn.Module):
 
 def last_level_route(cfg: ModelConfig) -> str:
     """How :meth:`UNet.masks` runs the last decoder level, head and argmax:
-    "fused" in K6, for plain (``arch="unet"``) stem-1 models whose width
-    and class count K6 is built for (``ops.dec1.kernel_takes``); else
+    "fused" in K6, for plain (``arch="unet"``) bf16 stem-1 models whose
+    width and class count K6 is built for (``ops.dec1.kernel_takes``); else
     "unfused": the level's convs in the conv kernel, the head a plain
-    product, then the argmax.  K6 computes the plain UNet's level only, so
-    the other families always take the unfused route."""
+    product, then the argmax.  K6 computes the plain UNet's level only, in
+    bf16 only, so the other families and float32 models always take the
+    unfused route."""
     if cfg.arch == "unet" and cfg.stem == 1 and \
+            cfg.compute_dtype == "bfloat16" and \
             kernel_takes(cfg.base_channels, cfg.num_classes):
         return "fused"
     return "unfused"
@@ -166,22 +196,22 @@ class UNet(nn.Module):
     def _trunk(self, x: torch.Tensor):
         """Everything before the last decoder level: (its input, its
         skip)."""
-        x = x.to(self.head_weight.dtype)
+        x = x.to(compute_dtype(self.cfg))
         if self.cfg.stem > 1:
             x = space_to_depth(x, self.cfg.stem)
         skips = []
         for stage in self.encoder:
-            x = stage(x)
+            x = remat(self.cfg, stage, x)
             skips.append(x)
             x = max_pool_2x2(x)
-        x = self.bottleneck(x)
+        x = self.bottleneck(x)  # not rematerialized, as in JAX
         for stage, skip in zip(self.decoder[:-1], reversed(skips[1:])):
-            x = stage(x, skip)
+            x = remat(self.cfg, stage, x, skip)
         return x, skips[0]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.decoder[-1](*self._trunk(x))
-        logits = x @ self.head_weight + self.head_bias
+        x = remat(self.cfg, self.decoder[-1], *self._trunk(x))
+        logits = x @ self.head_weight.to(x.dtype) + self.head_bias.to(x.dtype)
         if self.cfg.stem > 1:
             logits = depth_to_space(logits, self.cfg.stem)
         return logits.float()

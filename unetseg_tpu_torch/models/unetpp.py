@@ -12,7 +12,8 @@ conv kernel (K1/K2, ``ops.conv``): 30 per forward at depth 4, the widest
 input 5 * base channels at level 0.  The up-convs and heads stay plain
 products, as JAX computes them in ``lax``.  K6 fuses the plain UNet's last
 level only, so :meth:`UNetPP.masks` is the argmax of the logits.  As in
-JAX, ``init`` refuses ``stem != 1`` and the forward ignores ``stem``.
+JAX, ``init`` refuses ``stem != 1`` and the forward ignores ``stem``; JAX
+does not rematerialize UNet++ in training, so neither does the port.
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ from torch import nn
 
 from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.models.unet import (Conv1x1, Conv3x3, DoubleConv,
-                                           UpConv, _conv_init, max_pool_2x2,
-                                           param_count)
+                                           UpConv, _conv_init, compute_dtype,
+                                           max_pool_2x2, param_count)
 from unetseg_tpu_torch.ops.decode import decode_mask
 
 __all__ = ["NestedNode", "UNetPP", "init", "param_count", "level_channels"]
@@ -87,7 +88,7 @@ class UNetPP(nn.Module):
             raise ValueError(
                 f"unetpp: checkpoint has {len(self.heads)} head(s) but "
                 f"deep_supervision={self.cfg.deep_supervision} expects {want}")
-        x = x.to(self.heads[0].weight.dtype)
+        x = x.to(compute_dtype(self.cfg))
         grid = {}
         for i, stage in enumerate(self.backbone):
             x = stage(x)

@@ -132,8 +132,8 @@ def calibrate(params, cfg: ModelConfig, calib_batches,
 
     The drift guard: :func:`_forward_f32` hand-mirrors the UNet, so on the
     first batch its logits are held against the port's ``UNet`` in float32
-    built for the CPU (the card serves float models in bf16 only; P13),
-    within 5% of max(1, max |logit|): a structural drift (a missing stem, a
+    built on the calibration device (K8 on the card), as JAX holds it
+    against ``unet.apply``, within 5% of max(1, max |logit|): a structural drift (a missing stem, a
     changed activation) moves the logits by their own size and raises.
     An empty iterable, or one that leaves a scale at 0, raises ValueError:
     every activation would saturate."""
@@ -165,8 +165,9 @@ def calibrate(params, cfg: ModelConfig, calib_batches,
                 if not checked:
                     ref_cfg = dataclasses.replace(cfg, arch="unet",
                                                   compute_dtype="float32")
-                    ref = registry.build(params, ref_cfg, "cpu")(x_host)
-                    drift = float((logits.cpu() - ref).abs().max())
+                    ref = registry.build(params, ref_cfg, device)(
+                        x_host.to(device))
+                    drift = float((logits - ref).abs().max())
                     tol = 0.05 * max(1.0, float(ref.abs().max()))
                     if not drift < tol:
                         raise AssertionError(
