@@ -13,7 +13,7 @@ Phases, each of which fails the run (non-zero exit) on error:
    spills and shared memory per instantiation, as ``nvcc -Xptxas -v``
    reported them, one line each (``conv_resources``, ``dec1_resources``,
    ``cc_resources``, ``f32_resources``, ``s8_resources``); a spill in K6,
-   K3, K8 or K7 fails the run.
+   K3, K8 or K7, or a K8 instantiation missing, fails the run.
 3. Kernel parity: the conv kernel against its plain PyTorch version on
    slim4's ten conv shapes at batch 8, plus two ragged shapes, and on the
    tiling's edge cases at batch 3 (several column tiles with a remainder,
@@ -236,13 +236,19 @@ Phases, each of which fails the run (non-zero exit) on error:
    forward, artifacts byte-equal to ``process_batch``'s.
 
 22. Float32 (``f32``, P13): TF32 off for cuDNN and cuBLAS (asserted).  K8
-   (``csrc/conv3x3_f32.cu``) against its plain version and both against a
-   float64 reference on every conv shape slim4, the flagship and the zoo
-   serve (batch 2) and on the tiling's edges (C = 1, 4, 48, 80, 96; D = 48,
-   112; ragged B, H, W; with and without ReLU): within ``F32_TOL`` of max
-   |out| and at most ``F32_VS_LIBRARY`` times F.conv2d's own float32
-   error.  K8 per shape beside its bound (float32 operations at 67
-   TFLOP/s, or bytes), F.conv2d in float32 and its plain version, summed
+   (``csrc/conv3x3_f32.cu``: split-TF32 products, three tf32 wgmmas per
+   k-slice fed by TMA, each operand split into a TF32-rounded big half and
+   the rounded rest, sums in float32 in two levels) against its plain
+   version and both against a float64 reference on every conv shape slim4,
+   the flagship and the zoo serve (batch 2) and on the tiling's edges (C =
+   1, 4, 48, 80, 96; D = 48, 112; ragged B, H, W; train-to-serve's C = 32
+   convs; with and without ReLU), which between them run every
+   instantiation of the kernel (asserted): within ``F32_TOL`` of max |out|
+   and at most ``F32_VS_LIBRARY`` times F.conv2d's own float32 error.  K8
+   per shape beside its bound (float32 operations x 3 at the tf32 rate of
+   495 TFLOP/s, or bytes; the CUDA cores' figure at 67 TFLOP/s as
+   ``simt_ms`` in its records, not the kernels line), F.conv2d in float32 and
+   its plain version, summed
    per slim4 forward at 128 (the kernels line) and per flagship forward at
    32.  The seeded flagship (head centred) and slim4 re-configured to
    float32, counters set to 0 just before each call: ``process_batch``,
@@ -3384,8 +3390,13 @@ def w8a8_phase(torch, np, F, dev, card):
 # ---------------------------------------------------------------------------
 
 F32_SOURCE = "unetseg_tpu_torch/csrc/conv3x3_f32.cu"
-# H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet), K8's
-# design (SIMT FMAs); bytes at PEAK_HBM_BYTES.
+# H100 SXM dense tf32 tensor-core rate (NVIDIA data sheet): K8 computes
+# each float32 product as three tf32 products (split TF32), so its least
+# time is 3 x its float32 operations at this rate, or its bytes at
+# PEAK_HBM_BYTES if larger.  The float32 rate outside the tensor cores
+# (the first, SIMT K8's design) stays in the record as ``simt_ms``.
+PEAK_TF32_FLOPS = 495e12
+TF32_PRODUCTS = 3
 PEAK_F32_FLOPS = 67e12
 # K8 against a float64 reference, relative to max |output|; and at most
 # F32_VS_LIBRARY times F.conv2d's own float32 error (TF32 off), or one f32
@@ -3394,10 +3405,14 @@ F32_TOL = 2e-5
 F32_VS_LIBRARY = 4
 # K8's parity shapes: every conv shape slim4, the flagship and the zoo serve
 # (at F32_PARITY_BATCH), and the tiling's edges (C = 1, 4, 48, 80, 96;
-# D = 48, 112; ragged B, H, W) at EDGE_BATCH.
+# D = 48, 112; ragged B, H, W; train-to-serve's 16² and 32² convs at
+# C = 32, the only served <32, 64, unfolded> plans) at EDGE_BATCH.  Between
+# them they reach every instantiation of the kernel (phase 22 asserts it).
 F32_SERVED_CONVS = sorted(set(SLIM4_CONVS + FLAGSHIP_CONVS + ZOO_NEW_CONVS
                               + [STEM2_CONV]))
-F32_EDGE_CONVS = EDGE_CONVS + EXTRA_CONVS + [(9, 70, 1, 16), (5, 33, 4, 112)]
+F32_EDGE_CONVS = EDGE_CONVS + EXTRA_CONVS + [(9, 70, 1, 16), (5, 33, 4, 112),
+                                             (16, 16, 32, 32),
+                                             (32, 32, 32, 16)]
 F32_PARITY_BATCH = 2
 # The float32 main path: (model, batch, RAWs of its process_batch).
 F32_MODELS = {"flagship": (FLAGSHIP_BATCH, N_FLAGSHIP), "slim4": (128, 128)}
@@ -3436,23 +3451,60 @@ def f32_inputs(torch, shape, batch, device, seed):
 
 
 def f32_bound(shape, batch):
-    """(bound ms, flop ms, byte ms) of one float32 conv: its operations at
-    the float32 SIMT rate, each input read once and the output written
-    once."""
+    """(bound ms, flop ms, byte ms, simt ms) of one float32 conv: the
+    larger of its operations x 3 at the tf32 rate (K8's split-TF32 design)
+    and its bytes (each input read once, the output written once); then its
+    operations at the CUDA cores' float32 rate, the first K8's bound, kept
+    for the record (K8 now runs below it, so it is no bound of K8's)."""
     h, w, c, d = shape
     m = batch * h * w
-    f_ms = 2.0 * m * d * 9 * c / PEAK_F32_FLOPS * 1e3
+    flops = 2.0 * m * d * 9 * c
+    f_ms = TF32_PRODUCTS * flops / PEAK_TF32_FLOPS * 1e3
     b_ms = 4.0 * (m * c + 9 * c * d + d + m * d) / PEAK_HBM_BYTES * 1e3
-    return max(f_ms, b_ms), f_ms, b_ms
+    return max(f_ms, b_ms), f_ms, b_ms, flops / PEAK_F32_FLOPS * 1e3
+
+
+def check_f32_resources(conv):
+    """Logs K8's registers, spills and shared memory per instantiation
+    (``ptxas -v``); raises unless every ``conv.F32_INSTANTIATIONS`` variant
+    was built, none with a spill."""
+    res = conv.resources_f32()
+    for r in res:
+        log({"phase": "f32_resources", **r})
+    if sorted((r["bkc"], r["bn"], r["fold"]) for r in res) != \
+            sorted(conv.F32_INSTANTIATIONS) or \
+            any(r["spill_bytes"] for r in res):
+        raise AssertionError(f"K8: want {conv.F32_INSTANTIATIONS} without "
+                             f"spills, got {res}")
+
+
+def k8_plans(conv, shapes, batch):
+    """The (bkc, bn, fold) instantiations K8 runs for these (H, W, C, D)
+    shapes at ``batch`` (C and D padded to 16, as its wrapper pads them)."""
+    plans = (conv.tile_plan_f32(batch, h, w, c + -c % 16, d + -d % 16)
+             for h, w, c, d in shapes)
+    return {(p.bkc, p.bn, p.fold) for p in plans}
 
 
 def check_k8(torch, conv, dev, shapes, batch, seed0, relu=True):
     """K8 against its plain version (cuDNN float32, TF32 off) and both
-    against a float64 reference.  Returns max |K8 - plain|."""
+    against a float64 reference; its weight stage bit for bit against its
+    plain version, on the forward's weights and on the data gradient's
+    rotated, transposed view.  Returns max |K8 - plain|."""
+    import torch.nn.functional as F
+
     worst = 0.0
     rows = []
     for i, shape in enumerate(shapes):
         x, w, b = f32_inputs(torch, shape, batch, dev, seed0 + i)
+        for wv in (w, w.flip((0, 1)).transpose(2, 3)):
+            cw, dw = wv.shape[2:]
+            c16, d16 = cw + -cw % 16, dw + -dw % 16
+            want = conv.split_tf32(conv.kmajor(F.pad(
+                wv, (0, d16 - dw, 0, c16 - cw))))
+            if not torch.equal(conv.split_weights_f32(wv, c16, d16), want):
+                raise AssertionError(f"K8's weight stage {tuple(wv.shape)}: "
+                                     f"not its plain version's bits")
         got = conv.conv3x3_bias_act(x, w, b, relu)
         plain = conv.conv3x3_bias_act_plain(x, w, b, relu)
         ref = conv.conv3x3_bias_act_plain(x.double(), w.double(), b.double(),
@@ -3470,15 +3522,17 @@ def check_k8(torch, conv, dev, shapes, batch, seed0, relu=True):
                 f"(max |out| {scale}); F.conv2d's {p_err}")
         del x, w, b, got, plain, ref
     log({"phase": "k8_parity", "relu": relu, "max_abs_err": worst,
+         "weight_stage_bit_equal": True,
          "batch_h_w_c_d_k8_err_f_conv2d_err": rows})
     return worst
 
 
 def k8_times(torch, F, conv, dev, shapes, batch, card, tag):
     """K8, the plain version and F.conv2d (float32, channels-last, TF32
-    off) per shape at ``batch``, beside the bound; returns their sums."""
+    off) per shape at ``batch``, beside the bound (and the CUDA cores'
+    float32 figure, ``simt_ms``); returns their sums."""
     acc = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
-                         "flop_ms", "byte_ms"), 0.0)
+                         "flop_ms", "byte_ms", "simt_ms"), 0.0)
     for i, shape in enumerate(shapes):
         x, w, b = f32_inputs(torch, shape, batch, dev, 700 + i)
         xc = x.permute(0, 3, 1, 2)
@@ -3488,15 +3542,17 @@ def k8_times(torch, F, conv, dev, shapes, batch, card, tag):
         lib_ms = time_ms(torch, lambda: F.conv2d(xc, wc, b, padding=1), 3, 1)
         plain_ms = time_ms(torch, lambda: conv.conv3x3_bias_act_plain(
             x, w, b), 2, 1)
-        bound, f_ms, b_ms = f32_bound(shape, batch)
+        bound, f_ms, b_ms, simt_ms = f32_bound(shape, batch)
         log({"phase": "k8_time", "model": tag, "shape": [batch, *shape],
              "ms": k_ms, "library_ms": lib_ms, "plain_ms": plain_ms,
              "bound_ms": bound, "share_of_bound": bound / k_ms,
+             "simt_ms": simt_ms,
              "tflops": 2.0 * batch * shape[0] * shape[1] * shape[2]
              * shape[3] * 9 / k_ms / 1e9, **card})
         for key, val in (("ms", k_ms), ("plain_ms", plain_ms),
                          ("library_ms", lib_ms), ("bound_ms", bound),
-                         ("flop_ms", f_ms), ("byte_ms", b_ms)):
+                         ("flop_ms", f_ms), ("byte_ms", b_ms),
+                         ("simt_ms", simt_ms)):
             acc[key] += val
         del x, w, b, xc, wc
     torch.cuda.empty_cache()
@@ -3730,6 +3786,11 @@ def f32_phase(torch, np, F, dev, card):
             torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 is on: the float32 path and its "
                              "yardsticks must run in full float32")
+    plans = (k8_plans(conv, F32_SERVED_CONVS, F32_PARITY_BATCH)
+             | k8_plans(conv, F32_EDGE_CONVS, EDGE_BATCH))
+    if plans != set(conv.F32_INSTANTIATIONS):
+        raise AssertionError(f"K8 parity: the shapes run {sorted(plans)}, "
+                             f"not every {conv.F32_INSTANTIATIONS}")
     err = check_k8(torch, conv, dev, F32_SERVED_CONVS, F32_PARITY_BATCH, 800)
     err = max(err, check_k8(torch, conv, dev, F32_EDGE_CONVS, EDGE_BATCH,
                             900))
@@ -4267,12 +4328,7 @@ def main() -> int:
     if len(cc_res) != 8 or any(r["spill_bytes"] for r in cc_res):
         raise AssertionError(f"K3: want 8 kernels without spills, got "
                              f"{cc_res}")
-    f32_res = conv.resources_f32()
-    for r in f32_res:
-        log({"phase": "f32_resources", **r})
-    if len(f32_res) != 1 or f32_res[0]["spill_bytes"]:
-        raise AssertionError(f"K8: want 1 kernel without spills, got "
-                             f"{f32_res}")
+    check_f32_resources(conv)
     s8_res = conv_s8.resources()
     for r in s8_res:
         log({"phase": "s8_resources", **r})

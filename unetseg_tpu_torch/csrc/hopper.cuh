@@ -1,10 +1,10 @@
 // Hopper building blocks shared by the port's TMA + wgmma kernels
-// (conv3x3.cu, dec1_fused.cu): mbarriers, TMA tiled loads, wgmma
-// shared-memory descriptors and bf16 m64nNk16 products with f32
-// accumulators, named barriers, the swizzle of a TMA-written plane,
+// (conv3x3.cu, dec1_fused.cu, conv3x3_f32.cu): mbarriers, TMA tiled loads,
+// wgmma shared-memory descriptors, bf16 m64nNk16 and tf32 m64nNk8 products
+// with f32 accumulators, named barriers, the swizzle of a TMA-written plane,
 // cuTensorMapEncodeTiled reached through the runtime's driver entry point
-// (so no -lcuda) with a bf16 tensor-map helper over it, and the entry
-// points' error codes.  Every function is inline; each kernel library
+// (so no -lcuda) with a tensor-map helper over it (bf16 or f32), and the
+// entry points' error codes.  Every function is inline; each kernel library
 // includes this header, and its build hash covers it (_build.build_shared
 // deps).
 
@@ -66,6 +66,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1) {
   asm volatile(
@@ -95,8 +106,11 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
+// Wait until at most N committed wgmma groups of this warpgroup are still
+// in flight (N = 0: all retired).
+template <int N = 0>
 __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving accumulator reads or writes across the
@@ -463,6 +477,91 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da,
     wgmma_m64n256k16<TA, TB>(d, da, db);
 }
 
+// Operand majorness, in the tf32 wrappers' signatures.
+enum class Major { K, MN };
+
+// D (64 x N, f32) = A (64 x 8) * B (8 x N) + (scale_d ? D : 0), tf32
+// operands from shared-memory descriptors.  The tf32 form of the
+// instruction has no transpose immediates: both operands are K-major
+// (each row of A and each column of B, one output channel, holds its K
+// values contiguously).  The tensor cores read the top 19 bits of each
+// operand (sign, exponent, 10 mantissa bits).
+__device__ __forceinline__ void wgmma_tf32_m64n64k8(float (&d)[32],
+                                                    uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64],
+                                                     uint64_t da, uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x N) = A * B (+ D where scale_d) for the N above, tf32.  A and B
+// must both be Major::K: the instruction reads no other layout.
+template <int N, Major A = Major::K, Major B = Major::K>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  static_assert(A == Major::K && B == Major::K,
+                "tf32 wgmma: both operands must be K-major");
+  static_assert(N == 64 || N == 128, "wgmma_tf32: no m64nNk8 wrapper for N");
+  if constexpr (N == 64)
+    wgmma_tf32_m64n64k8(d, da, db, scale_d);
+  else
+    wgmma_tf32_m64n128k8(d, da, db, scale_d);
+}
+
 // Makes this thread's ordinary shared-memory stores visible to the async
 // proxy (wgmma and TMA read it): issue before the barrier after which a
 // wgmma reads what the stores wrote.
@@ -541,18 +640,19 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A tensor map over a dense bf16 tensor of `rank` dims (innermost first),
-// boxes of `box` elements landing as rows of `row_bytes` (128, 64 or 32)
-// with the matching swizzle; zero fill outside the tensor.  Needs a
-// non-null encoder().
-inline bool encode_map(CUtensorMap* map, const void* ptr, int rank,
-                       const cuuint64_t* dims, const cuuint32_t* box,
-                       int row_bytes) {
+// A tensor map over a dense tensor of `rank` dims (innermost first) of
+// `type` (bf16 or float32), boxes of `box` elements landing as rows of
+// `row_bytes` (128, 64 or 32) with the matching swizzle; zero fill outside
+// the tensor.  Needs a non-null encoder().
+inline bool encode_map(
+    CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+    const cuuint32_t* box, int row_bytes,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   cuuint64_t strides[4];
-  cuuint64_t s = 2;
+  cuuint64_t s = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   for (int i = 0; i + 1 < rank; ++i) strides[i] = s *= dims[i];
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  return encoder()(map, type, rank,
                    const_cast<void*>(ptr), dims, strides, box, ones,
                    CU_TENSOR_MAP_INTERLEAVE_NONE, tma_swizzle(row_bytes),
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

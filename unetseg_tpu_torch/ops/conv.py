@@ -26,8 +26,12 @@ so the CPU tests cover the plan: tiles of 128 output pixels (``rt`` rows x
 ``wt`` columns of one image) by ``bn`` channels, and K slices of ``bkc``
 channels of one tap; with ``fold``, one input box of ``wt + 2`` columns
 serves the three dx taps of a row of taps.  K8's tiling is
-:func:`tile_plan_f32`: 128 flattened output pixels by 64 channels, K steps
-of one tap by 16 channels.
+:func:`tile_plan_f32`, the same image-row tiles with float32 widths.  K8
+computes split-TF32 (3xTF32) products on the tensor cores: the weights go
+to it K-major, ``(3, 3, D, C)``, split into a TF32-rounded big half and the
+rounded rest by its weight stage, one elementwise launch per call
+(:func:`split_weights_f32`; plain version :func:`split_tf32` of
+:func:`kmajor`); the kernel splits its input boxes itself.
 
 Training runs the same kernels under autograd (:func:`conv3x3_bias_act_train`,
 :class:`Conv3x3Function`): the forward is :func:`conv3x3_bias_act`; the data
@@ -82,7 +86,7 @@ class TilePlan(NamedTuple):
     rt: int       # tile rows: 128 // wt
     bn: int       # output channels per tile: 64, 128 or 256
     bkc: int      # channels per K slice (one TMA box): 64, 32 or 16
-    swizzle: int  # shared-memory swizzle of the A box, bytes: bkc * 2
+    swizzle: int  # swizzle of the A box, bytes: bkc x element bytes
     fold: bool    # one (wt + 2)-column A box per (dy, chunk) for all 3 dx
     tiles_w: int
     tiles_h: int
@@ -103,17 +107,28 @@ def tile_plan(B: int, H: int, W: int, C: int, D: int) -> TilePlan:
     box of wt + 2 columns per (dy, chunk) and reads the three dx taps as
     views one pixel apart: a third of the input boxes.  C and D must be
     multiples of 16."""
+    _check_plan(B, H, W, C, D)
+    bkc = next(k for k in (64, 32, 16) if C % k == 0)
+    bn = 64 if D <= 64 else 256 if D >= 256 and bkc == 64 else 128
+    return _image_row_plan(B, H, W, D, bn, bkc, 2)
+
+
+def _check_plan(B: int, H: int, W: int, C: int, D: int) -> None:
     if C % 16 or D % 16 or min(B, H, W, C, D) < 1:
         raise ValueError(f"conv3x3 tile plan: needs C and D multiples of 16, "
                          f"got B={B} H={H} W={W} C={C} D={D}")
+
+
+def _image_row_plan(B: int, H: int, W: int, D: int, bn: int, bkc: int,
+                    elem_bytes: int) -> TilePlan:
+    """The tiles of 128 pixels, ``rt`` image rows by ``wt`` columns, that K1
+    and K8 share, for channel tiles of ``bn`` and K slices of ``bkc``."""
     wt = min(TILE_PIXELS, 1 << (W - 1).bit_length())
     rt = TILE_PIXELS // wt
-    bkc = next(k for k in (64, 32, 16) if C % k == 0)
-    bn = 64 if D <= 64 else 256 if D >= 256 and bkc == 64 else 128
-    fold = wt >= 64 and bn <= 128
     tiles_w, tiles_h, tiles_n = -(-W // wt), -(-H // rt), -(-D // bn)
-    return TilePlan(wt, rt, bn, bkc, 2 * bkc, fold, tiles_w, tiles_h,
-                    tiles_n, B * tiles_h * tiles_w * tiles_n)
+    return TilePlan(wt, rt, bn, bkc, elem_bytes * bkc, wt >= 64 and bn <= 128,
+                    tiles_w, tiles_h, tiles_n,
+                    B * tiles_h * tiles_w * tiles_n)
 
 
 # The entry point's own error codes (CUDA's are positive).
@@ -121,35 +136,76 @@ _ERRORS = {-1: "tile plan refused", -2: "no cuTensorMapEncodeTiled in the "
            "driver", -3: "tensor map refused"}
 
 
-class F32Plan(NamedTuple):
-    """How K8 cuts one conv: see :func:`tile_plan_f32`."""
-    bm: int       # output pixels per block (flattened over B, H, W)
-    bn: int       # output channels per block
-    bk: int       # channels per K step (one tap)
-    steps: int    # K steps: 9 * C / bk
-    tiles_m: int
-    tiles_n: int
-    grid: int     # blocks: tiles_m * tiles_n
+#: K8's (bkc, bn, fold) instantiations in ``csrc/conv3x3_f32.cu``: every
+#: plan :func:`tile_plan_f32` makes.
+F32_INSTANTIATIONS = tuple((bkc, bn, fold) for bkc in (16, 32)
+                           for bn in (64, 128) for fold in (False, True))
 
 
-#: K8's block tile, as ``BM``, ``BN`` and ``BK`` in ``csrc/conv3x3_f32.cu``.
-F32_TILE = (128, 64, 16)
+def tile_plan_f32(B: int, H: int, W: int, C: int, D: int) -> TilePlan:
+    """K8's tiling of a (B,H,W,C) x (3,3,C,D) float32 conv: :func:`tile_plan`'s
+    image-row tiles of 128 pixels with float32 widths.  ``bkc`` is 32 (one
+    128-byte swizzle row of floats) when it divides C, else 16 (64-byte
+    rows); ``bn`` is 64 for D <= 64, else 128 (the kernel keeps a partial
+    sum beside the accumulator, so 256 does not fit its registers); ``fold``
+    whenever ``wt >= 64``.  C and D must be multiples of 16."""
+    _check_plan(B, H, W, C, D)
+    return _image_row_plan(B, H, W, D, 64 if D <= 64 else 128,
+                           32 if C % 32 == 0 else 16, 4)
 
 
-def tile_plan_f32(B: int, H: int, W: int, C: int, D: int) -> F32Plan:
-    """K8's tiling of a (B,H,W,C) x (3,3,C,D) float32 conv: blocks of 128
-    output pixels of the flattened (B, H, W) by 64 channels, each summing
-    K steps of one tap by 16 channels (so the SAME padding is a per-pixel
-    mask of the tap, and a step is never partial); the last pixel block
-    and, for D not a multiple of 64, the last channel block are masked.
-    C and D must be multiples of 16."""
-    if C % 16 or D % 16 or min(B, H, W, C, D) < 1:
-        raise ValueError(f"conv3x3 f32 tile plan: needs C and D multiples "
-                         f"of 16, got B={B} H={H} W={W} C={C} D={D}")
-    bm, bn, bk = F32_TILE
-    tiles_m, tiles_n = -(-B * H * W // bm), -(-D // bn)
-    return F32Plan(bm, bn, bk, 9 * C // bk, tiles_m, tiles_n,
-                   tiles_m * tiles_n)
+def split_tf32(t: torch.Tensor) -> torch.Tensor:
+    """``(2, *t.shape)``, contiguous: ``big``, float32 ``t`` rounded to TF32
+    (10 mantissa bits) to nearest with ties away from zero on its bits (the
+    13 low bits become zero, as K8's ``round_tf32`` does), and ``small``,
+    ``t - big`` (exact in float32) rounded likewise; so ``big + small`` is
+    ``t`` to about 22 significant bits and both halves are exact TF32
+    operands.  The plain version of K8's weight stage
+    (:func:`split_weights_f32`)."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"split_tf32 takes float32, got {t.dtype}")
+    out = torch.empty((2, *t.shape), dtype=t.dtype, device=t.device)
+    big, small = out[0], out[1]
+    torch.add(t.view(torch.int32), 0x1000, out=big.view(torch.int32))
+    big.view(torch.int32).bitwise_and_(-0x2000)
+    torch.sub(t, big, out=small)
+    small.view(torch.int32).add_(0x1000).bitwise_and_(-0x2000)
+    return out
+
+
+def kmajor(w: torch.Tensor) -> torch.Tensor:
+    """HWIO ``(3, 3, C, D)`` weights in K8's K-major form ``(3, 3, D, C)``
+    (a view; :func:`split_tf32` lays it out).  For the data gradient's
+    weights, ``w`` rotated and transposed, that is ``w`` rotated alone."""
+    return w.permute(0, 1, 3, 2)
+
+
+def split_weights_f32(w: torch.Tensor, c: int, d: int) -> torch.Tensor:
+    """K8's weight stage: HWIO float32 ``w`` (3, 3, C', D'), any strides,
+    zero-padded to (3, 3, c, d), in K8's split K-major form (2, 3, 3, d, c)
+    (:func:`split_tf32` of :func:`kmajor`).  On a CUDA tensor one launch of
+    ``split_weights_kernel`` (part of each K8 call, which counts it as one
+    launch with the conv's); on the CPU the plain version."""
+    if w.dtype != torch.float32 or w.dim() != 4 or \
+            tuple(w.shape[:2]) != (3, 3) or w.shape[2] > c or w.shape[3] > d:
+        raise ValueError(f"split_weights_f32: float32 (3, 3, <= {c}, <= {d})"
+                         f" weights wanted, got {w.dtype} {tuple(w.shape)}")
+    if w.device.type == "cpu":
+        return split_tf32(kmajor(F.pad(w, (0, d - w.shape[3],
+                                           0, c - w.shape[2]))))
+    out = torch.empty((2, 3, 3, d, c), dtype=w.dtype, device=w.device)
+    with torch.cuda.device(w.device):
+        _raise_on(_split_into(load_f32(), w, out, torch.cuda.current_stream(
+            w.device).cuda_stream))
+    return out
+
+
+def _split_into(lib, w: torch.Tensor, out: torch.Tensor, stream) -> int:
+    """Launches K8's weight stage from CUDA ``w`` into ``out`` (2, 3, 3, d,
+    c); returns the entry point's error code."""
+    return lib.utconv3x3_f32_split(w.data_ptr(), *w.stride(), w.shape[2],
+                                   w.shape[3], out.shape[4], out.shape[3],
+                                   out.data_ptr(), stream)
 
 
 def reset_launches() -> None:
@@ -184,23 +240,27 @@ def load_f32() -> ctypes.CDLL:
         if _lib_f32 is None:
             path = build_shared("libconv3x3_f32",
                                 [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"],
-                                [SOURCE_F32])
+                                [SOURCE_F32], deps=[HEADER])
             lib = ctypes.CDLL(path)
             lib.utconv3x3_f32.restype = ctypes.c_int
             lib.utconv3x3_f32.argtypes = (
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
                 + [ctypes.c_void_p])
+            lib.utconv3x3_f32_split.restype = ctypes.c_int
+            lib.utconv3x3_f32_split.argtypes = (
+                [ctypes.c_void_p] + [ctypes.c_longlong] * 4
+                + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+            lib.utconv3x3_f32_smem_bytes.restype = ctypes.c_int
+            lib.utconv3x3_f32_smem_bytes.argtypes = [ctypes.c_int] * 3
             _lib_f32, _lib_f32_path = lib, path
         return _lib_f32
 
 
 def resources_f32() -> list:
-    """K8's registers, spills and static shared memory, as ``nvcc -Xptxas
-    -v`` reported them when its library was built."""
-    load_f32()
-    return [{"kernel": "conv3x3_f32_kernel", **info}
-            for name, info in parse_ptxas(read_log(_lib_f32_path)).items()
-            if "conv3x3_f32_kernel" in name]
+    """K8's instantiations as :func:`resources` lists K1's: registers,
+    spills, static and dynamic shared memory per ``(bkc, bn, fold)``."""
+    return _resources(load_f32(), _lib_f32_path, "conv3x3_tf32x3_kernel",
+                      "utconv3x3_f32_smem_bytes")
 
 
 def resources() -> list:
@@ -209,15 +269,19 @@ def resources() -> list:
     dynamic shared memory: a list of dicts with keys ``bkc``, ``bn``,
     ``fold``, ``registers``, ``spill_bytes``, ``smem_static``,
     ``smem_dynamic``."""
-    lib = load()
+    return _resources(load(), _lib_path, "conv3x3_wgmma_kernel",
+                      "utconv3x3_smem_bytes")
+
+
+def _resources(lib, path: str, kernel: str, smem_fn: str) -> list:
     out = []
-    for name, info in parse_ptxas(read_log(_lib_path)).items():
-        m = re.search(r"conv3x3_wgmma_kernelILi(\d+)ELi(\d+)ELb([01])E", name)
+    for name, info in parse_ptxas(read_log(path)).items():
+        m = re.search(kernel + r"ILi(\d+)ELi(\d+)ELb([01])E", name)
         if m:
             bkc, bn, fold = (int(g) for g in m.groups())
             out.append({"bkc": bkc, "bn": bn, "fold": bool(fold), **info,
-                        "smem_dynamic": lib.utconv3x3_smem_bytes(bkc, bn,
-                                                                 fold)})
+                        "smem_dynamic": getattr(lib, smem_fn)(bkc, bn,
+                                                              fold)})
     return sorted(out, key=lambda r: (r["fold"], r["bkc"], r["bn"]))
 
 
@@ -304,8 +368,9 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """3x3 stride-1 SAME conv + bias (+ ReLU): (B,H,W,C) x (3,3,C,D) + (D,)
     -> (B,H,W,D) in ``x.dtype``, summed in float32.
 
-    CUDA tensors must be all bf16 (K1/K2) or all float32 (K8), contiguous
-    and 16-byte aligned; anything else raises.  C and D may be any size:
+    CUDA tensors must be all bf16 (K1/K2) or all float32 (K8), x and b
+    contiguous and 16-byte aligned (w may have any strides: the kernels
+    read a laid-out copy); anything else raises.  C and D may be any size:
     the kernel gets them zero-padded to multiples of 16
     (:func:`pad_input_channels`, :func:`pad_output_channels`) and the
     output is sliced back to D.  B, H and W may be any size; the kernels
@@ -317,42 +382,83 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3: unsupported device {x.device}")
     if x.dtype == w.dtype == b.dtype == torch.float32:
-        f32 = True
-    elif x.dtype == w.dtype == b.dtype == torch.bfloat16:
-        f32 = False
-    else:
+        return _conv3x3_f32(x, w, b, relu)
+    if not x.dtype == w.dtype == b.dtype == torch.bfloat16:
         raise TypeError(f"conv3x3 kernels take bf16 or float32, all alike; "
                         f"got {x.dtype}, {w.dtype}, {b.dtype}")
     d_out = w.shape[3]
     x, w = pad_input_channels(x, w)
     w, b = pad_output_channels(w, b)
+    w = w.contiguous()
     B, H, W, C = x.shape
     D = w.shape[3]
-    if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
-        raise ValueError("conv3x3 kernel needs contiguous x, w, b")
-    if x.data_ptr() % 16 or w.data_ptr() % 16 or (f32 and b.data_ptr() % 16):
-        raise ValueError("conv3x3 kernel needs 16-byte aligned x and w (and "
-                         "b in float32)")
-    plan = tile_plan_f32(B, H, W, C, D) if f32 else tile_plan(B, H, W, C, D)
-    if plan.grid >= 2 ** 31 or max(B, H, W) >= 2 ** 31:
-        raise ValueError(f"conv3x3 kernel: {plan.grid} tiles, more than the "
-                         f"grid holds")
+    if not (x.is_contiguous() and b.is_contiguous()):
+        raise ValueError("conv3x3 kernel needs contiguous x and b")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("conv3x3 kernel needs 16-byte aligned x and w")
+    plan = tile_plan(B, H, W, C, D)
+    _check_grid(plan, B, H, W)
     out = torch.empty((B, H, W, D), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):  # the launch goes to x's card
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if f32:
-            err = load_f32().utconv3x3_f32(
-                x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                B, H, W, C, D, int(relu), stream)
-        else:
-            err = load().utconv3x3_bf16(
-                x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                B, H, W, C, D, int(relu), plan.wt, plan.rt, plan.bn,
-                plan.bkc, int(plan.fold), stream)
+        err = load().utconv3x3_bf16(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+            B, H, W, C, D, int(relu), plan.wt, plan.rt, plan.bn,
+            plan.bkc, int(plan.fold), stream)
+    _raise_on(err)
+    LAUNCHES[variant(C, x.dtype)] += 1
+    return out if D == d_out else out[..., :d_out].contiguous()
+
+
+def _check_grid(plan: TilePlan, B: int, H: int, W: int) -> None:
+    if plan.grid >= 2 ** 31 or max(B, H, W) >= 2 ** 31:
+        raise ValueError(f"conv3x3 kernel: {plan.grid} tiles, more than the "
+                         f"grid holds")
+
+
+def _raise_on(err: int) -> None:
     if err != 0:
         raise RuntimeError(f"conv3x3 kernel launch failed: "
                            f"{_ERRORS.get(err, f'CUDA error {err}')}")
-    LAUNCHES[variant(C, x.dtype)] += 1
+
+
+def _conv3x3_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 relu: bool) -> torch.Tensor:
+    """K8 on CUDA float32 tensors: x (B,H,W,C), w (3,3,C,D) HWIO of any
+    strides, b (D,).  C and D are zero-padded to multiples of 16 (exact, as
+    for K1): x and b here, the weights by the weight stage
+    (:func:`split_weights_f32`), which lays them out as the kernel's split
+    (2, 3, 3, D, C); raises on anything the kernel does not take."""
+    if not (x.device == w.device == b.device and x.device.type == "cuda"):
+        raise ValueError("conv3x3 f32 kernel: x, w, b must be on one card")
+    if not x.dtype == w.dtype == b.dtype == torch.float32:
+        raise TypeError(f"conv3x3 f32 kernel takes float32; got {x.dtype}, "
+                        f"{w.dtype}, {b.dtype}")
+    d_out = w.shape[3]
+    extra_c, extra_d = -x.shape[3] % 16, -d_out % 16
+    if extra_c:
+        x = F.pad(x, (0, extra_c))
+    if extra_d:
+        b = F.pad(b, (0, extra_d))
+    B, H, W, C = x.shape
+    D = d_out + extra_d
+    if not (x.is_contiguous() and b.is_contiguous()):
+        raise ValueError("conv3x3 kernel needs contiguous x and b")
+    if x.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("conv3x3 kernel needs 16-byte aligned x and b")
+    plan = tile_plan_f32(B, H, W, C, D)
+    _check_grid(plan, B, H, W)
+    ws = torch.empty((2, 3, 3, D, C), dtype=x.dtype, device=x.device)
+    out = torch.empty((B, H, W, D), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):  # the launches go to x's card
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        lib = load_f32()
+        err = _split_into(lib, w, ws, stream) or lib.utconv3x3_f32(
+            x.data_ptr(), ws.data_ptr(), b.data_ptr(), out.data_ptr(),
+            B, H, W, C, D, int(relu), plan.wt, plan.rt, plan.bn,
+            plan.bkc, int(plan.fold), stream)
+    _raise_on(err)
+    LAUNCHES["conv3x3_bias_act_f32"] += 1
     return out if D == d_out else out[..., :d_out].contiguous()
 
 
@@ -385,11 +491,12 @@ def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     conv of ``g`` with the weights rotated by 180 degrees and transposed to
     (3,3,D,C), run through :func:`conv3x3_bias_act` (the kernels on CUDA)
     with a zero bias and no ReLU; its launches are also counted in
-    ``DGRAD_LAUNCHES``."""
-    w_t = w.flip((0, 1)).transpose(2, 3).contiguous()
+    ``DGRAD_LAUNCHES``.  The transpose stays a view: K8's weight stage
+    reads it through its strides (its K-major form is ``w`` rotated)."""
     zero = torch.zeros((w.shape[2],), dtype=g.dtype, device=g.device)
     before = dict(LAUNCHES)
-    dx = conv3x3_bias_act(g.contiguous(), w_t, zero, relu=False)
+    dx = conv3x3_bias_act(g.contiguous(), w.flip((0, 1)).transpose(2, 3),
+                          zero, relu=False)
     for k, n in LAUNCHES.items():
         DGRAD_LAUNCHES[k] += n - before[k]
     return dx
