@@ -40,7 +40,8 @@ NEW_MODULES = ("unetseg_tpu_torch.ops.dec1", "unetseg_tpu_torch.ops.halo_copy",
                "unetseg_tpu_torch.parallel.distributed",
                "unetseg_tpu_torch.quantize", "unetseg_tpu_torch.ops.conv_s8",
                "unetseg_tpu_torch.train",
-               "unetseg_tpu_torch.benchmarks.train_flagship")
+               "unetseg_tpu_torch.benchmarks.train_flagship",
+               "unetseg_tpu_torch.benchmarks.k7_bench")
 
 
 def test_port_imports_no_jax():

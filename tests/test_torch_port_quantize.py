@@ -33,6 +33,8 @@ from unetseg_tpu_torch import checkpoint, quantize
 from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.data import training_batch
 from unetseg_tpu_torch.models import registry
+from unetseg_tpu_torch.models.unet import (depth_to_space, max_pool_2x2,
+                                           space_to_depth)
 from unetseg_tpu_torch.ops import conv_s8
 
 SIZE = 64
@@ -289,3 +291,54 @@ def test_k7_plain_version_exact_and_cpu_route():
     assert conv_s8.LAUNCHES["conv3x3_s8"] == 0
     with pytest.raises(TypeError, match="int8"):
         conv_s8.conv3x3_s8(x.float(), w, scale, bias)
+
+
+def _site_by_site(model, x):
+    """The w8a8 UNet as the sites' own f32-in / f32-out forwards compose it
+    (each quantizes its f32 input; max-pool and concat on f32): JAX's
+    ``apply_w8a8`` order, which ``W8A8UNet.forward`` computed before its
+    activations passed between the sites in int8."""
+    x = x.float()
+    if model.cfg.stem > 1:
+        x = space_to_depth(x, model.cfg.stem)
+    skips = []
+    for stage in model.encoder:
+        x = stage.conv2(stage.conv1(x))
+        skips.append(x)
+        x = max_pool_2x2(x)
+    x = model.bottleneck.conv2(model.bottleneck.conv1(x))
+    for stage, skip in zip(model.decoder, reversed(skips)):
+        x = torch.cat([skip, stage.up(x)], dim=-1)
+        x = stage.conv2(stage.conv1(x))
+    logits = model.head(x)
+    if model.cfg.stem > 1:
+        logits = depth_to_space(logits, model.cfg.stem)
+    return logits
+
+
+@pytest.mark.parametrize("stem", [1, 4])
+def test_int8_flow_bit_equal_to_site_by_site(stem):
+    """``W8A8UNet.forward`` (int8 between the sites: K7's plain version
+    quantizing for its consumers, an encoder stage's last conv for two,
+    int8 max-pool and concat) gives logits ``torch.equal`` to the
+    site-by-site f32 composition, at stems 1 and 4, on a model calibrated
+    by the port, each site's scale then set apart from the others."""
+    jcfg, cfg = _cfgs(stem)
+    params = jax.device_get(jax_unet.init(jax.random.key(10 + stem), jcfg))
+    calib = [training_batch(np.random.default_rng(21), 3, SIZE)[0]]
+    scales = quantize.calibrate(params, cfg, calib, device="cpu")
+    # Calibration gives a stage's pooled path and its skip the same scale
+    # (max-pooling keeps the maximum); spread them so that a site quantized
+    # with another's scale shows.
+    scales = {k: v * (1 + 0.05 * i) for i, (k, v) in enumerate(
+        scales.items())}
+    tree = quantize.quantize_params(params, cfg, scales)
+    model = registry.build(tree, dataclasses.replace(cfg, arch="unet_w8a8"),
+                           device="cpu")
+    x = torch.from_numpy(training_batch(np.random.default_rng(22), 2,
+                                        SIZE)[0])
+    with torch.inference_mode():
+        got = model(x)
+        want = _site_by_site(model, x)
+    assert got.shape == (2, SIZE, SIZE, cfg.num_classes)
+    assert torch.isfinite(got).all() and torch.equal(got, want)

@@ -1,12 +1,13 @@
 // Hopper building blocks shared by the port's TMA + wgmma kernels
-// (conv3x3.cu, dec1_fused.cu, conv3x3_f32.cu): mbarriers, TMA tiled loads,
-// wgmma shared-memory descriptors, bf16 m64nNk16 and tf32 m64nNk8 products
-// with f32 accumulators, named barriers, the swizzle of a TMA-written plane,
+// (conv3x3.cu, dec1_fused.cu, conv3x3_f32.cu, conv3x3_s8.cu): mbarriers,
+// TMA tiled loads, wgmma shared-memory descriptors, bf16 m64nNk16 and tf32
+// m64nNk8 products with f32 accumulators, s8 m64nNk32 products with s32
+// accumulators, named barriers, the swizzle of a TMA-written plane,
 // cuTensorMapEncodeTiled reached through the runtime's driver entry point
-// (so no -lcuda) with a tensor-map helper over it (bf16 or f32), and the
-// entry points' error codes.  Every function is inline; each kernel library
-// includes this header, and its build hash covers it (_build.build_shared
-// deps).
+// (so no -lcuda) with a tensor-map helper over it (bf16, f32 or 8-bit),
+// and the entry points' error codes.  Every function is inline; each
+// kernel library includes this header, and its build hash covers it
+// (_build.build_shared deps).
 
 #pragma once
 
@@ -119,6 +120,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // D (64 x N, f32) += A (64 x 16) * B (16 x N), bf16 operands from shared
@@ -562,6 +568,152 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da,
     wgmma_tf32_m64n128k8(d, da, db, scale_d);
 }
 
+// D (64 x N, s32) = A (64 x 32) * B (32 x N) + (scale_d ? D : 0), signed
+// 8-bit operands from shared-memory descriptors.  As for tf32, the 8-bit
+// forms of the instruction have no transpose immediates: both operands are
+// K-major (32 bytes of K a k-slice, as bf16's k16).  The sums are exact
+// int32.
+__device__ __forceinline__ void wgmma_s8_m64n64k32(int (&d)[32],
+                                                 uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64],
+                                                 uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n256k32(int (&d)[128],
+                                                 uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x N) = A * B (+ D where scale_d) for N = 64, 128, 256, s8 x s8 ->
+// s32.  A and B must both be Major::K: the instruction reads no other
+// layout.
+template <int N, Major A = Major::K, Major B = Major::K>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  static_assert(A == Major::K && B == Major::K,
+                "s8 wgmma: both operands must be K-major");
+  static_assert(N == 64 || N == 128 || N == 256,
+                "wgmma_s8: no m64nNk32 wrapper for N");
+  if constexpr (N == 64)
+    wgmma_s8_m64n64k32(d, da, db, scale_d);
+  else if constexpr (N == 128)
+    wgmma_s8_m64n128k32(d, da, db, scale_d);
+  else
+    wgmma_s8_m64n256k32(d, da, db, scale_d);
+}
+
 // Makes this thread's ordinary shared-memory stores visible to the async
 // proxy (wgmma and TMA read it): issue before the barrier after which a
 // wgmma reads what the stores wrote.
@@ -640,16 +792,26 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
+// Bytes of one element of a tensor map's `type`: the types the kernels
+// use (float32, bf16, and UINT8 for int8 data: CUtensorMapDataType has no
+// signed 8-bit type, and UINT8 moves the same bytes and zero-fills with
+// 0).
+inline cuuint64_t elem_bytes(CUtensorMapDataType type) {
+  return type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4
+         : type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1
+                                                 : 2;
+}
+
 // A tensor map over a dense tensor of `rank` dims (innermost first) of
-// `type` (bf16 or float32), boxes of `box` elements landing as rows of
-// `row_bytes` (128, 64 or 32) with the matching swizzle; zero fill outside
-// the tensor.  Needs a non-null encoder().
+// `type` (bf16, float32 or UINT8), boxes of `box` elements landing as rows
+// of `row_bytes` (128, 64 or 32) with the matching swizzle; zero fill
+// outside the tensor.  Needs a non-null encoder().
 inline bool encode_map(
     CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
     const cuuint32_t* box, int row_bytes,
     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   cuuint64_t strides[4];
-  cuuint64_t s = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
+  cuuint64_t s = elem_bytes(type);
   for (int i = 0; i + 1 < rank; ++i) strides[i] = s *= dims[i];
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   return encoder()(map, type, rank,

@@ -1,39 +1,57 @@
 """The w8a8 3x3 conv: int8 NHWC x int8 weights -> int32 -> f32 dequantize +
-bias (+ ReLU).
+bias (+ ReLU), written as f32 or quantized again to int8 for the next site.
 
 K7 of the port, a kernel with no Pallas counterpart: the JAX package runs
 this conv in ``lax.conv_general_dilated(..., preferred_element_type=int32)``
 (``unetseg_tpu/quantize.py::_conv_w8a8``), and PyTorch has no int8
-convolution on CUDA.  On a CUDA tensor :func:`conv3x3_s8` launches the
-hand-written kernel in ``unetseg_tpu_torch/csrc/conv3x3_s8.cu`` (built with
-nvcc for sm_90a at first use and bound with ctypes) or raises; it never
-falls back.  On a CPU tensor it runs :func:`conv3x3_s8_plain`, the exact
-plain version the tests and ``chip_smoke.py`` hold the kernel against.
+convolution on CUDA.  On a CUDA tensor :func:`conv3x3_s8` (f32 out) and
+:func:`conv3x3_s8_q` (int8 out, one tensor per scale) launch the
+hand-written TMA + ``wgmma`` kernel in
+``unetseg_tpu_torch/csrc/conv3x3_s8.cu`` (built with nvcc for sm_90a at
+first use and bound with ctypes) or raise; they never fall back.  On a CPU
+tensor they run :func:`conv3x3_s8_plain` and :func:`conv3x3_s8_q_plain`,
+the exact plain versions the tests and ``chip_smoke.py`` hold the kernel
+against.
 
 The weights are K-major, ``(3, 3, D, C)``: the JAX tree's HWIO ``(3, 3, C,
 D)`` with the last two axes swapped, made once when the quantized model is
-built (``checkpoint.params_from_jax``).  ``scale`` is ``act_scale * w_scale`` (one f32
-product per channel, as JAX computes it), so the output is, per channel d,
-``float(acc) * scale[d] + bias[d]``, each step rounded once in that order.
+built (``checkpoint.params_from_jax``); the kernel reads them as they are.
+``scale`` is ``act_scale * w_scale`` (one f32 product per channel, as JAX
+computes it), so the f32 output is, per channel d, ``float(acc) * scale[d] +
+bias[d]``, each step rounded once in that order; the int8 output is
+:func:`quant_act` of it with each of ``out_scales``.
+
+The kernel's tiling is decided here (:func:`tile_plan_s8`): K1's image-row
+tiles of 128 pixels (``ops/conv._image_row_plan``) with int8 widths.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import threading
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc, read_log
-from unetseg_tpu_torch.ops.conv import parse_ptxas
+from unetseg_tpu_torch.ops.conv import (_ERRORS, HEADER, TilePlan,
+                                        _check_grid, _check_plan,
+                                        _image_row_plan, parse_ptxas)
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "conv3x3_s8.cu")
 
-#: Kernel launches since the last :func:`reset_launches`.
+#: Kernel launches since the last :func:`reset_launches`, both epilogues.
 LAUNCHES = {"conv3x3_s8": 0}
+
+#: The (bkc, bn, fold) plans ``csrc/conv3x3_s8.cu`` instantiates, each in
+#: both epilogues (f32 and int8 out): every plan :func:`tile_plan_s8` makes.
+S8_INSTANTIATIONS = tuple(
+    [(bkc, bn, fold) for fold in (False, True) for bn in (64, 128)
+     for bkc in (32, 64, 128)] + [(128, 256, False)])
 
 _lock = threading.Lock()
 _lib = None
@@ -44,6 +62,24 @@ def reset_launches() -> None:
     LAUNCHES["conv3x3_s8"] = 0
 
 
+def tile_plan_s8(B: int, H: int, W: int, C: int, D: int) -> TilePlan:
+    """K7's tiling of a (B,H,W,C) x (3,3,D,C) int8 conv: K1's image-row
+    tiles of 128 pixels (``rt`` rows by ``wt`` columns of one image) with
+    int8 widths.  ``bkc`` is the largest of 128, 64 and 32 int8 channels
+    (one 128-, 64- or 32-byte swizzle row) that divides C; ``bn`` is 64
+    for D <= 64, 256 for D >= 256 with 128-channel boxes (one block per
+    SM), else 128; ``fold`` (one box of wt + 2 columns per (dy, chunk),
+    read by the three dx taps) when ``wt >= 64`` and ``bn <= 128``.  C must
+    be a multiple of 32 (one k32 slice of wgmma; the wrapper pads it) and D
+    of 16 (the 16-byte stores)."""
+    _check_plan(B, H, W, C, D)
+    if C % 32:
+        raise ValueError(f"K7 tile plan: needs C a multiple of 32, got {C}")
+    bkc = next(k for k in (128, 64, 32) if C % k == 0)
+    bn = 64 if D <= 64 else 256 if D >= 256 and bkc == 128 else 128
+    return _image_row_plan(B, H, W, D, bn, bkc, 1)
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use.  Raises if it cannot be."""
     global _lib, _lib_path
@@ -51,23 +87,37 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             path = build_shared("libconv3x3_s8",
                                 [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"],
-                                [SOURCE])
+                                [SOURCE], deps=[HEADER])
             lib = ctypes.CDLL(path)
             lib.utconv3x3_s8.restype = ctypes.c_int
             lib.utconv3x3_s8.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
+                + [ctypes.c_void_p])
+            lib.utconv3x3_s8_smem_bytes.restype = ctypes.c_int
+            lib.utconv3x3_s8_smem_bytes.argtypes = [ctypes.c_int] * 4
             _lib, _lib_path = lib, path
         return _lib
 
 
 def resources() -> list:
-    """What ``nvcc -Xptxas -v`` reported for the kernel when the library was
-    built: a list of dicts with ``registers``, ``spill_bytes`` and
-    ``smem_static``."""
-    load()
-    return [{"kernel": name, **info}
-            for name, info in parse_ptxas(read_log(_lib_path)).items()
-            if "conv3x3_s8_kernel" in name]
+    """Per kernel instantiation, what ``nvcc -Xptxas -v`` reported when the
+    library was built (registers, spills, static shared memory) and its
+    dynamic shared memory: a list of dicts with keys ``bkc``, ``bn``,
+    ``fold``, ``quant`` (the int8 epilogue), ``registers``,
+    ``spill_bytes``, ``smem_static``, ``smem_dynamic``."""
+    lib = load()
+    out = []
+    for name, info in parse_ptxas(read_log(_lib_path)).items():
+        m = re.search(r"conv3x3_s8_wgmma_kernelILi(\d+)ELi(\d+)ELb([01])"
+                      r"ELb([01])E", name)
+        if m:
+            bkc, bn, fold, quant = (int(g) for g in m.groups())
+            out.append({"bkc": bkc, "bn": bn, "fold": bool(fold),
+                        "quant": bool(quant), **info,
+                        "smem_dynamic": lib.utconv3x3_s8_smem_bytes(
+                            bkc, bn, fold, quant)})
+    return sorted(out, key=lambda r: (r["quant"], r["fold"], r["bkc"],
+                                      r["bn"]))
 
 
 def quant_act(x: torch.Tensor, act_scale: torch.Tensor) -> torch.Tensor:
@@ -108,6 +158,16 @@ def conv3x3_s8_plain(x_q: torch.Tensor, w_k: torch.Tensor,
     return dequant(conv3x3_s8_acc_plain(x_q, w_k), scale, bias, relu)
 
 
+def conv3x3_s8_q_plain(x_q: torch.Tensor, w_k: torch.Tensor,
+                       scale: torch.Tensor, bias: torch.Tensor,
+                       out_scales: Sequence[torch.Tensor],
+                       relu: bool = True) -> List[torch.Tensor]:
+    """Plain version of :func:`conv3x3_s8_q`: :func:`quant_act` of
+    :func:`conv3x3_s8_plain` with each of ``out_scales``."""
+    y = conv3x3_s8_plain(x_q, w_k, scale, bias, relu)
+    return [quant_act(y, s) for s in out_scales]
+
+
 def _check(x_q, w_k, scale, bias) -> None:
     if x_q.dim() != 4 or w_k.dim() != 4 or \
             tuple(w_k.shape[:2]) != (3, 3) or w_k.shape[3] != x_q.shape[3] \
@@ -126,22 +186,30 @@ def _check(x_q, w_k, scale, bias) -> None:
                          "device")
 
 
-def conv3x3_s8(x_q: torch.Tensor, w_k: torch.Tensor, scale: torch.Tensor,
-               bias: torch.Tensor, relu: bool = True) -> torch.Tensor:
-    """3x3 stride-1 SAME conv of int8 ``x_q`` (B,H,W,C) with K-major int8
-    ``w_k`` (3,3,D,C), int32 sums, then ``float(acc) * scale + bias``
-    (+ ReLU) -> f32 (B,H,W,D).
+def _check_scales(x_q, out_scales) -> None:
+    if not 1 <= len(out_scales) <= 2:
+        raise ValueError(f"conv3x3_s8_q: one or two out_scales, got "
+                         f"{len(out_scales)}")
+    for s in out_scales:
+        if s.dtype != torch.float32 or s.numel() != 1 or \
+                s.device != x_q.device:
+            raise ValueError(f"conv3x3_s8_q: each out scale a one-element "
+                             f"f32 tensor on {x_q.device}, got {s.dtype} "
+                             f"{tuple(s.shape)} on {s.device}")
 
-    On CUDA, C and D that are not multiples of 16 are zero-padded for the
-    kernel (exact: the added channels meet zero weights) and the output is
-    sliced back to D.  x and w must be contiguous and 16-byte aligned."""
-    _check(x_q, w_k, scale, bias)
-    if x_q.device.type == "cpu":
-        return conv3x3_s8_plain(x_q, w_k, scale, bias, relu)
+
+def _launch(x_q, w_k, scale, bias, out_scales, relu) -> List[torch.Tensor]:
+    """K7 on CUDA tensors: f32 out when ``out_scales`` is empty, else one
+    int8 tensor per scale.  C is zero-padded to a multiple of 32 and D to
+    one of 16 for the kernel (exact: the added channels meet zero weights)
+    and the outputs sliced back to D.  (A 32-channel box half past C = 16,
+    zero-filled by TMA itself, took 0.67-0.68 ms for slim4's stem at batch
+    128 on an H100 against 0.29 ms on the padded input plus 0.11 for the
+    pad.)"""
     if x_q.device.type != "cuda":
         raise ValueError(f"conv3x3_s8: unsupported device {x_q.device}")
     d_out = w_k.shape[2]
-    extra_c, extra_d = -x_q.shape[3] % 16, -d_out % 16
+    extra_c, extra_d = -x_q.shape[3] % 32, -d_out % 16
     if extra_c:
         x_q = F.pad(x_q, (0, extra_c))
         w_k = F.pad(w_k, (0, extra_c))
@@ -153,17 +221,55 @@ def conv3x3_s8(x_q: torch.Tensor, w_k: torch.Tensor, scale: torch.Tensor,
     if not (x_q.is_contiguous() and w_k.is_contiguous()
             and scale.is_contiguous() and bias.is_contiguous()):
         raise ValueError("conv3x3_s8 kernel needs contiguous operands")
-    if x_q.data_ptr() % 16 or w_k.data_ptr() % 16:
-        raise ValueError("conv3x3_s8 kernel needs 16-byte aligned x and w")
+    if x_q.data_ptr() % 16 or w_k.data_ptr() % 16 or \
+            scale.data_ptr() % 8 or bias.data_ptr() % 8:
+        raise ValueError("conv3x3_s8 kernel needs 16-byte aligned x and w, "
+                         "8-byte aligned scale and bias")
+    plan = tile_plan_s8(B, H, W, C, D)
+    _check_grid(plan, B, H, W)
     lib = load()
-    out = torch.empty((B, H, W, D), dtype=torch.float32, device=x_q.device)
+    nq = len(out_scales)
+    outs = [torch.empty((B, H, W, D), dtype=torch.int8 if nq else
+                        torch.float32, device=x_q.device)
+            for _ in range(max(nq, 1))]
+    ptrs = [o.data_ptr() for o in outs] + [None] * (2 - len(outs))
+    qs = [s.data_ptr() for s in out_scales] + [None] * (2 - nq)
     with torch.cuda.device(x_q.device):  # the launch goes to x's card
         err = lib.utconv3x3_s8(
-            x_q.data_ptr(), w_k.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, H, W, C, D, int(relu),
+            x_q.data_ptr(), w_k.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), *qs, *ptrs, B, H, W, C, D, int(relu), nq,
+            plan.wt, plan.rt, plan.bn, plan.bkc, int(plan.fold),
             torch.cuda.current_stream(x_q.device).cuda_stream)
     if err != 0:
-        why = "plan refused" if err == -1 else f"CUDA error {err}"
-        raise RuntimeError(f"conv3x3_s8 kernel launch failed: {why}")
+        raise RuntimeError(f"conv3x3_s8 kernel launch failed: "
+                           f"{_ERRORS.get(err, f'CUDA error {err}')}")
     LAUNCHES["conv3x3_s8"] += 1
-    return out if D == d_out else out[..., :d_out].contiguous()
+    return [o if D == d_out else o[..., :d_out].contiguous() for o in outs]
+
+
+def conv3x3_s8(x_q: torch.Tensor, w_k: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor, relu: bool = True) -> torch.Tensor:
+    """3x3 stride-1 SAME conv of int8 ``x_q`` (B,H,W,C) with K-major int8
+    ``w_k`` (3,3,D,C), int32 sums, then ``float(acc) * scale + bias``
+    (+ ReLU) -> f32 (B,H,W,D).  x and w must be contiguous and 16-byte
+    aligned on CUDA."""
+    _check(x_q, w_k, scale, bias)
+    if x_q.device.type == "cpu":
+        return conv3x3_s8_plain(x_q, w_k, scale, bias, relu)
+    return _launch(x_q, w_k, scale, bias, [], relu)[0]
+
+
+def conv3x3_s8_q(x_q: torch.Tensor, w_k: torch.Tensor, scale: torch.Tensor,
+                 bias: torch.Tensor, out_scales: Sequence[torch.Tensor],
+                 relu: bool = True) -> List[torch.Tensor]:
+    """:func:`conv3x3_s8` whose f32 result is quantized in the kernel's
+    epilogue for the site(s) that consume it: one int8 (B,H,W,D) tensor per
+    scale of ``out_scales`` (one or two one-element f32 tensors on x's
+    device, e.g. the next sites' ``act_scale``), each
+    ``quant_act(conv3x3_s8(...), s)`` bit for bit.  No host sync: the
+    kernel reads the scales on the card."""
+    _check(x_q, w_k, scale, bias)
+    _check_scales(x_q, out_scales)
+    if x_q.device.type == "cpu":
+        return conv3x3_s8_q_plain(x_q, w_k, scale, bias, out_scales, relu)
+    return _launch(x_q, w_k, scale, bias, list(out_scales), relu)

@@ -8,13 +8,17 @@
   tree: per-output-channel symmetric int8 weights ``w_q`` with f32
   ``w_scale``, f32 ``b`` and the site's 0-d f32 ``act_scale`` (numpy, the
   JAX package's arithmetic copied, so the trees are bit-equal);
-* :class:`W8A8UNet` is the quantized forward (``apply_w8a8``): at each conv
-  input the f32 activations quantize to int8, the 3x3 convs run int8 x
-  int8 -> int32 in K7 (``ops/conv_s8.py``, ``csrc/conv3x3_s8.cu``) on the
-  card and in its exact plain version on the CPU, the 2x2 up-convs and the
-  1x1 head are int8 products (``torch._int_mm``), and dequantize + bias
-  (+ ReLU) run in f32, as do max-pool, concat, space-to-depth and
-  depth-to-space between the sites;
+* :class:`W8A8UNet` is the quantized forward (``apply_w8a8``): the 3x3
+  convs run int8 x int8 -> int32 in K7 (``ops/conv_s8.py``,
+  ``csrc/conv3x3_s8.cu``) on the card and in its exact plain version on the
+  CPU, the 2x2 up-convs and the 1x1 head are int8 products
+  (``torch._int_mm``).  Activations pass between the sites in int8: the
+  input is quantized once, each K7 dequantizes (+ bias, ReLU) and quantizes
+  again for the site(s) that read its output in its epilogue, max-pool and
+  concat run on int8, and only the up-convs (dequantize, requantize) and
+  the head (dequantize to the logits) leave int8.  It computes JAX's flow
+  (a quantize at every site input) bit for bit: the quantize is
+  elementwise and non-decreasing, so it commutes with concat and max-pool;
 * :func:`quantize_checkpoint` writes a ``arch="unet_w8a8"`` checkpoint that
   every entry point serves through ``models/registry.build``
   (:func:`register_arch`).
@@ -39,7 +43,8 @@ from unetseg_tpu_torch import checkpoint
 from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.models.unet import (depth_to_space, max_pool_2x2,
                                            space_to_depth, stage_channels)
-from unetseg_tpu_torch.ops.conv_s8 import conv3x3_s8, dequant, quant_act
+from unetseg_tpu_torch.ops.conv_s8 import (conv3x3_s8, conv3x3_s8_q,
+                                           dequant, quant_act)
 from unetseg_tpu_torch.ops.decode import decode_mask
 
 
@@ -286,6 +291,13 @@ class W8A8Conv3x3(_Site):
         return conv3x3_s8(quant_act(x, self.act_scale), self.weight,
                           self.scale, self.bias, relu=True)
 
+    def forward_q(self, x_q: torch.Tensor, out_scales) -> list:
+        """int8 in (already quantized with ``act_scale``), int8 out: one
+        tensor per scale of ``out_scales``, the consumers' ``act_scale``,
+        quantized in K7's epilogue."""
+        return conv3x3_s8_q(x_q, self.weight, self.scale, self.bias,
+                            out_scales, relu=True)
+
 
 class W8A8UpConv(_Site):
     """2x2 stride-2 transposed conv as an int8 product over channels
@@ -296,10 +308,18 @@ class W8A8UpConv(_Site):
         super().__init__((cin, 4 * cout), cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, h, w, c = x.shape
+        return self._dequant(quant_act(x, self.act_scale))
+
+    def forward_q(self, x_q: torch.Tensor, out_scale: torch.Tensor
+                  ) -> torch.Tensor:
+        """int8 in (quantized with ``act_scale``), int8 out, quantized
+        with ``out_scale`` (the next conv's ``act_scale``)."""
+        return quant_act(self._dequant(x_q), out_scale)
+
+    def _dequant(self, x_q: torch.Tensor) -> torch.Tensor:
+        n, h, w, c = x_q.shape
         d = self.bias.shape[0]
-        acc = int8_matmul(quant_act(x, self.act_scale).reshape(-1, c),
-                          self.weight)
+        acc = int8_matmul(x_q.reshape(-1, c), self.weight)
         acc = acc.reshape(n, h, w, 2, 2, d).permute(0, 1, 3, 2, 4, 5)
         return dequant(acc.reshape(n, 2 * h, 2 * w, d), self.scale,
                        self.bias, relu=False)
@@ -312,11 +332,14 @@ class W8A8Conv1x1(_Site):
         super().__init__((cin, cout), cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.forward_q(quant_act(x, self.act_scale))
+
+    def forward_q(self, x_q: torch.Tensor) -> torch.Tensor:
+        """int8 in (quantized with ``act_scale``), f32 out."""
         c, d = self.weight.shape
-        acc = int8_matmul(quant_act(x, self.act_scale).reshape(-1, c),
-                          self.weight)
-        return dequant(acc.reshape(*x.shape[:-1], d), self.scale, self.bias,
-                       relu=False)
+        acc = int8_matmul(x_q.reshape(-1, c), self.weight)
+        return dequant(acc.reshape(*x_q.shape[:-1], d), self.scale,
+                       self.bias, relu=False)
 
 
 class _Double(nn.Module):
@@ -359,19 +382,32 @@ class W8A8UNet(nn.Module):
                                 cfg.num_classes * cfg.stem * cfg.stem)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Activations in int8 between the sites: each conv's output is
+        quantized, in K7's epilogue, with the scale of the site that reads
+        it; an encoder stage's last conv writes two tensors, one pooled for
+        the next stage and the skip for its decoder's first conv."""
         x = x.float()
         if self.cfg.stem > 1:
             x = space_to_depth(x, self.cfg.stem)
+        enc, mid, dec = self.encoder, self.bottleneck, self.decoder
+        x_q = quant_act(x, enc[0].conv1.act_scale)
         skips = []
-        for stage in self.encoder:
-            x = stage.conv2(stage.conv1(x))
-            skips.append(x)
-            x = max_pool_2x2(x)
-        x = self.bottleneck.conv2(self.bottleneck.conv1(x))
-        for stage, skip in zip(self.decoder, reversed(skips)):
-            x = torch.cat([skip, stage.up(x)], dim=-1)
-            x = stage.conv2(stage.conv1(x))
-        logits = self.head(x)
+        for i, stage in enumerate(enc):
+            h_q, = stage.conv1.forward_q(x_q, [stage.conv2.act_scale])
+            down = enc[i + 1].conv1 if i + 1 < len(enc) else mid.conv1
+            x_q, skip_q = stage.conv2.forward_q(h_q, [
+                down.act_scale, dec[len(enc) - 1 - i].conv1.act_scale])
+            skips.append(skip_q)
+            x_q = max_pool_2x2(x_q)
+        h_q, = mid.conv1.forward_q(x_q, [mid.conv2.act_scale])
+        x_q, = mid.conv2.forward_q(h_q, [dec[0].up.act_scale])
+        for i, (stage, skip_q) in enumerate(zip(dec, reversed(skips))):
+            up_q = stage.up.forward_q(x_q, stage.conv1.act_scale)
+            x_q = torch.cat([skip_q, up_q], dim=-1)
+            h_q, = stage.conv1.forward_q(x_q, [stage.conv2.act_scale])
+            nxt = dec[i + 1].up if i + 1 < len(dec) else self.head
+            x_q, = stage.conv2.forward_q(h_q, [nxt.act_scale])
+        logits = self.head.forward_q(x_q)
         if self.cfg.stem > 1:
             logits = depth_to_space(logits, self.cfg.stem)
         return logits
