@@ -288,6 +288,22 @@ Phases, each of which fails the run (non-zero exit) on error:
    the loss falls.  ``F32_TRAIN_STEPS`` float32 flagship steps, timed;
    ``DISTILL_STEPS`` distillation steps, slim4 the student, the seeded
    flagship's logits the teacher.
+25. The spatial split (``spatial``, P9c): slim4 (bf16, 128), the seeded
+   flagship (32) and slim4 in float32 (128) through
+   ``make_sharded_pipeline(spatial=True)`` over dp 1 x sp 2 and dp 2 x
+   sp 2 on the card's positions (``SP_MESHES``), counters set to 0 just
+   before each call: masks bit-equal to the one-device engine's unfused
+   route (else held to the near-tie rule, with the pixels that differ and
+   the first op where the bands part from the whole image logged);
+   launches exactly each forward's convs x its non-empty bands x dp, no
+   K6, 2 K3 a dp part; the exchange's bytes (``spatial.EXCHANGE``), ms per
+   batch against the dp engine, the one-device engine and its unfused
+   route by CUDA events, the copies' share of the profiled device time.
+   One flagship step (remat, batch 8) over dp 1 x sp 2 in bf16 and in
+   float32 against the one-device step: the loss within 1e-4, the
+   gradients within 1e-4 of each tensor's largest in float32 and within
+   the bf16 gradient bar (``RTOL``) in bf16; launches per band the
+   forward, the remat recompute and 17 data gradients.
 
 The line before the last is the ``{"kernels": [...]}`` record, each conv
 kernel's entry with its data-gradient launches (``dgrad_launches``); the
@@ -4378,6 +4394,248 @@ def train_flagship_phase(torch, np, F, dev, card):
     return total, dgrad_total
 
 
+# Phase 25: the spatial split (P9c).  Each model through
+# make_sharded_pipeline(spatial=True) over the card's positions: (positions,
+# sp) = dp 1 x sp 2 and dp 2 x sp 2.
+SP_MESHES = ((2, 2), (4, 2))
+SP_MODELS = {"slim4": 128, "flagship": FLAGSHIP_BATCH, "slim4_f32": 128}
+SP_ITERS = 5
+SP_PARTING_BATCH = 2
+SP_TRAIN_BATCH = 8
+# Device kernels of the exchange's slab assembly: the concatenations, the
+# zero edge rows and any copy.
+SP_COPY_KERNELS = ("cat", "copy", "memcpy", "memset", "fill")
+# The sp train step against the one-device step: the loss within
+# SP_LOSS_RTOL; the gradients within SP_GRAD_TOL of each tensor's largest
+# (in bf16 each band's weight-gradient partial rounds to bf16 before the
+# bands are added, as each dp part's does: the repo's bf16 gradient bar).
+SP_LOSS_RTOL = 1e-4
+SP_GRAD_TOL = {"float32": 1e-4, "bfloat16": RTOL}
+
+
+def first_parting(torch, model, x, devices, unit):
+    """Where a banded forward first parts from the whole one: the first
+    submodule (in call order) whose output differs, with its largest
+    difference; "head" when only the logits differ; None when none does."""
+    from unetseg_tpu_torch.parallel import spatial
+
+    names = {m: n for n, m in model.named_modules() if n}
+    outs = {"whole": [], "bands": []}
+    run = ["whole"]
+
+    def hook(mod, args, out):
+        if isinstance(out, spatial.Bands):
+            out = spatial.gather(out, x.device)
+        outs[run[0]].append((names[mod], out))
+    handles = [m.register_forward_hook(hook) for m in names]
+    try:
+        with torch.inference_mode():
+            whole = model(x)
+            run[0] = "bands"
+            banded = spatial.gather(model(spatial.split(x, devices, unit)),
+                                    x.device)
+    finally:
+        for h in handles:
+            h.remove()
+    for (name, a), (_, b) in zip(outs["whole"], outs["bands"]):
+        if not torch.equal(a, b):
+            return name, float((a.float() - b.float()).abs().max())
+    if not torch.equal(whole, banded):
+        return "head", float((whole - banded).abs().max())
+    return None, 0.0
+
+
+def copy_share(prof: dict) -> float:
+    """The share of the profiled device time in the exchange's copies."""
+    copies = sum(r["ms_per_iter"] for r in prof["top"]
+                 if any(k in r["kernel"].lower() for k in SP_COPY_KERNELS))
+    return copies / prof["device_ms_per_iter"]
+
+
+def spatial_model(torch, np, name, params, cfg, u8, dev, card):
+    """Phase 25 for one model on the u8 batch; returns the counted runs'
+    launches."""
+    from unetseg_tpu_torch import engine
+    from unetseg_tpu_torch.models import registry
+    from unetseg_tpu_torch.ops import dec1, decode, postprocess, preprocess
+    from unetseg_tpu_torch.parallel import batch, mesh as pmesh, spatial
+
+    model = registry.build(params, cfg, dev)
+    per_fwd = convs_per_forward(model)
+    unit = spatial.row_unit(cfg)
+    x = preprocess.model_input_from_u8(u8)[..., None]
+
+    def unfused():  # the one-device engine's unfused route
+        with torch.inference_mode():
+            return postprocess.postprocess_masks(decode.decode_mask(
+                model(x), cfg.num_classes))
+    ref = unfused()
+    one = engine.InferenceEngine(params, cfg, device=dev,
+                                 device_postprocess=True)
+    total: dict = {}
+    for n, sp in SP_MESHES:
+        mesh = pmesh.make_mesh(n, sp=sp, devices=[dev] * n)
+        dp = mesh.shape["dp"]
+        bands = sum(1 for r in pmesh.band_rows(u8.shape[1], sp, unit)
+                    if len(r))
+        fn = batch.make_sharded_pipeline(cfg, mesh, spatial=True)
+        fn(params, u8)  # builds the replicas
+        torch.cuda.synchronize()
+        reset_all_launches()
+        spatial.reset_exchange()
+        got = fn(params, u8)
+        torch.cuda.synchronize()
+        launches, exchange = all_launches(), dict(spatial.EXCHANGE)
+        want = {k: v * bands * dp for k, v in per_fwd.items()}
+        want.update(dec1_fused=0, cc_label=2 * dp)
+        equal = torch.equal(got, ref)
+        rec = {"phase": "spatial", "model": name, "positions": n, "dp": dp,
+               "sp": sp, "bands": bands, "batch": u8.shape[0],
+               "bit_equal": equal, "launches": launches,
+               "launches_want": want,
+               "exchanges_per_forward": exchange["exchanges"] / dp,
+               "halo_bytes_per_forward": exchange["halo_bytes"] / dp,
+               "slab_bytes_per_forward": exchange["slab_bytes"] / dp}
+        if not equal:
+            # the raw masks under the near-tie bar, and where they part
+            with torch.inference_mode():
+                raw = torch.cat([spatial.gather(model.masks(spatial.split(
+                    xp, mesh.devices[i], unit)), dev) for i, xp in
+                    enumerate(pmesh.split_batch(x, [dev] * dp))])
+                want_raw = decode.decode_mask(model(x), cfg.num_classes)
+                logits, absum = head_sums(torch, model, x)
+            differ = raw != want_raw
+            tie = dec1.near_tie_sums(logits, absum, ulps=CPU_TIE_ULPS)
+            where = first_parting(torch, model, x[:SP_PARTING_BATCH],
+                                  mesh.devices[0], unit)
+            rec.update(raw_pixels_differ=int(differ.sum()),
+                       cleaned_pixels_differ=int((got != ref).sum()),
+                       not_near_tie=int((differ & ~tie).sum()),
+                       parting_starts_in=where[0], parting_max_diff=where[1])
+            if (differ & ~tie).any() or not torch.equal(
+                    got, postprocess.postprocess_masks(raw)):
+                log(rec)
+                raise AssertionError(f"{name} spatial masks over {n} "
+                                     f"positions: {rec}")
+        if launches != want:
+            log(rec)
+            raise AssertionError(f"{name} spatial launches {launches}, "
+                                 f"want {want}")
+        dp_fn = batch.make_sharded_pipeline(cfg, mesh)
+        rec.update(
+            spatial_ms_per_batch=time_ms(torch, lambda: fn(params, u8),
+                                         SP_ITERS),
+            dp_ms_per_batch=time_ms(torch, lambda: dp_fn(params, u8),
+                                    SP_ITERS),
+            one_device_ms_per_batch=time_ms(
+                torch, lambda: one._pipeline(u8), SP_ITERS),
+            one_device_unfused_ms_per_batch=time_ms(torch, unfused, SP_ITERS))
+        prof = profile_pipeline(torch, lambda: fn(params, u8), iters=3,
+                                top=1000)
+        rec.update(copy_share_of_device_time=copy_share(prof),
+                   device_idle_share=prof["device_idle_share"],
+                   device_ms_per_batch=prof["device_ms_per_iter"],
+                   top_kernels=prof["top"][:8])
+        log({**rec, **card})
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del fn, dp_fn, got
+        torch.cuda.empty_cache()
+    return total
+
+
+def spatial_train(torch, np, dtype, dev, card):
+    """One flagship step (remat, batch SP_TRAIN_BATCH) over dp 1 x sp 2 on
+    the card against the one-device step: the loss, the gradients, the
+    launches of the step (each band: the forward, the remat recompute of
+    every stage but the bottleneck, the data gradients of all convs but the
+    first).  Returns the step's launches and data-gradient launches."""
+    from unetseg_tpu_torch import train
+    from unetseg_tpu_torch.config import ModelConfig
+    from unetseg_tpu_torch.data import training_batch
+    from unetseg_tpu_torch.ops import conv
+    from unetseg_tpu_torch.parallel import mesh as pmesh
+
+    cfg = ModelConfig(remat=True, compute_dtype=dtype, **FLAGSHIP_KW)
+    convs = 4 * cfg.depth + 2
+    batch = tuple(torch.from_numpy(a).to(dev) for a in training_batch(
+        np.random.default_rng(81), SP_TRAIN_BATCH))
+    tx = train.make_optimizer(lr=3e-4, total_steps=100)
+    state = train.init_state(6, cfg, tx, device=dev)
+    l1, g1 = train.loss_and_grads(state.params, batch, cfg)
+    l2, g2 = train.loss_and_grads(state.params, batch, cfg, devices=[dev],
+                                  bands=[[dev, dev]])
+    g_err = max(float((g2[k] - g1[k]).abs().max()) /
+                max(float(g1[k].abs().max()), 1e-30) for k in g1)
+    g_norm = max(float((g2[k] - g1[k]).norm()) /
+                 max(float(g1[k].norm()), 1e-30) for k in g1)
+    del g1, g2
+    step = train.make_sharded_train_step(
+        cfg, pmesh.make_mesh(2, sp=2, devices=[dev] * 2), tx)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    new, loss = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches, dgrad = all_launches(), dict(conv.DGRAD_LAUNCHES)
+    kernels = ("conv3x3_bias_act_f32",) if dtype == "float32" else (
+        "conv3x3_bias_act", "conv3x3_bias_act_small_c")
+    fwd = sum(launches[k] for k in kernels)
+    dg = sum(dgrad[k] for k in kernels)
+    want_fwd, want_dg = 2 * (3 * convs - 3), 2 * (convs - 1)
+    rec = {"phase": "spatial_train", "dtype": dtype, "batch": SP_TRAIN_BATCH,
+           "losses": [float(l1), float(l2), float(loss)],
+           "grad_max_rel_err": g_err, "grad_norm_rel_err": g_norm,
+           "grad_tol": SP_GRAD_TOL[dtype], "step_ms": step_ms,
+           "launches": launches, "dgrad_launches": dgrad, **card}
+    log(rec)
+    if any(abs(v - float(l1)) > SP_LOSS_RTOL * abs(float(l1))
+           for v in (float(l2), float(loss))) or \
+            g_err > SP_GRAD_TOL[dtype] or new.step != 1:
+        raise AssertionError(f"sp step ({dtype}): {rec}")
+    if fwd != want_fwd or dg != want_dg or launches["dec1_fused"]:
+        raise AssertionError(f"sp step ({dtype}) launches {launches}, dgrad "
+                             f"{dgrad}: want {want_fwd}, {want_dg}")
+    return launches, dgrad
+
+
+def spatial_phase(torch, np, dev, card):
+    """Phase 25 for slim4 (bf16 and float32) and the seeded flagship, then
+    the sp train steps; returns the launches and data-gradient launches."""
+    import dataclasses
+
+    from unetseg_tpu_torch import checkpoint
+    from unetseg_tpu_torch.io import native, raw as raw_io
+
+    total, dgrad_total = {}, {}
+
+    def add(launches, dgrad=None):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        for k, v in (dgrad or {}).items():
+            dgrad_total[k] = dgrad_total.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        flag_ckpt, paths = flagship_checkpoint(torch, np, tmp, dev)
+        u8 = torch.from_numpy(np.stack([native.preprocess_u8(np.asarray(
+            raw_io.read_raw(p, 768, 768)), 512) for p in paths])).to(dev)
+        slim_params, slim_cfg = checkpoint.load(CKPT)
+        models = {"slim4": (slim_params, slim_cfg),
+                  "flagship": checkpoint.load(flag_ckpt),
+                  "slim4_f32": (slim_params, dataclasses.replace(
+                      slim_cfg, compute_dtype="float32"))}
+        for name, n in SP_MODELS.items():
+            batch = u8.repeat(-(-n // len(paths)), 1, 1)[:n]
+            add(spatial_model(torch, np, name, *models[name], batch, dev,
+                              card))
+            torch.cuda.empty_cache()
+    for dtype in ("bfloat16", "float32"):
+        add(*spatial_train(torch, np, dtype, dev, card))
+        torch.cuda.empty_cache()
+    return total, dgrad_total
+
+
 def main() -> int:
     import torch
 
@@ -4802,6 +5060,15 @@ def main() -> int:
             f32_launches[k] = f32_launches.get(k, 0) + v
         for k, v in dgrad.items():
             dgrad_launches[k] = dgrad_launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches, dgrad = spatial_phase(torch, np, dev, card)
+    log({"phase": "spatial_phase_seconds",
+         "seconds": time.perf_counter() - t0})
+    for k, v in launches.items():
+        f32_launches[k] = f32_launches.get(k, 0) + v
+    for k, v in dgrad.items():
+        dgrad_launches[k] = dgrad_launches.get(k, 0) + v
     for k in kernels:
         k["launches"] += f32_launches.get(k["name"], 0)
         if k["name"] in dgrad_launches:

@@ -41,7 +41,8 @@ NEW_MODULES = ("unetseg_tpu_torch.ops.dec1", "unetseg_tpu_torch.ops.halo_copy",
                "unetseg_tpu_torch.quantize", "unetseg_tpu_torch.ops.conv_s8",
                "unetseg_tpu_torch.train",
                "unetseg_tpu_torch.benchmarks.train_flagship",
-               "unetseg_tpu_torch.benchmarks.k7_bench")
+               "unetseg_tpu_torch.benchmarks.k7_bench",
+               "unetseg_tpu_torch.parallel.spatial")
 
 
 def test_port_imports_no_jax():
@@ -88,6 +89,7 @@ def test_port_sources_name_no_jax():
             os.path.join(root, "parallel", "mesh.py"),
             os.path.join(root, "parallel", "batch.py"),
             os.path.join(root, "parallel", "distributed.py"),
+            os.path.join(root, "parallel", "spatial.py"),
             os.path.join(root, "quantize.py"),
             os.path.join(root, "ops", "conv_s8.py"),
             os.path.join(root, "train.py"),

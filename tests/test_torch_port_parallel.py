@@ -105,14 +105,27 @@ def test_sharded_forward_matches_plain(model):
 
 
 def test_spatial_split_raises_p9c(model):
-    _, cfg, params = model
+    """The meshes the spatial split's refusal met now serve as JAX's do: an
+    sp > 1 mesh through ``make_sharded_pipeline`` and
+    ``make_sharded_forward`` over its dp devices (``P("dp")``, replicated
+    over sp), and ``spatial=True`` on an sp = 1 mesh (one band a part)."""
+    jcfg, cfg, params = model
+    u8 = _u8((4, SIZE, SIZE), seed=5)
+    x = (u8.astype(np.float32) / 255)[..., None]
     sp_mesh = mesh.make_mesh(4, sp=2, devices=["cpu"] * 4)
-    for make in (lambda: batch.make_sharded_pipeline(cfg, sp_mesh),
-                 lambda: batch.make_sharded_forward(cfg, sp_mesh),
-                 lambda: batch.make_sharded_pipeline(
-                     cfg, mesh.make_mesh(devices=["cpu"] * 2), spatial=True)):
-        with pytest.raises(NotImplementedError, match=r"spatial.*P9c"):
-            make()
+    jsp_mesh = jax_mesh.make_mesh(4, sp=2)
+    for got, want in (
+            (batch.make_sharded_pipeline(cfg, sp_mesh),
+             jax_batch.make_sharded_pipeline(jcfg, jsp_mesh)),
+            (batch.make_sharded_pipeline(
+                cfg, mesh.make_mesh(devices=["cpu"] * 2), spatial=True),
+             jax_batch.make_sharded_pipeline(jcfg, jax_mesh.make_mesh(2),
+                                             spatial=True))):
+        np.testing.assert_array_equal(got(params, torch.from_numpy(u8)),
+                                      np.asarray(want(params, u8)))
+    got = batch.make_sharded_forward(cfg, sp_mesh)(params, torch.from_numpy(x))
+    want = jax_batch.make_sharded_forward(jcfg, jsp_mesh)(params, x)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
 @pytest.mark.parametrize("n", [2, 4])

@@ -26,8 +26,9 @@ JAX engine's dp mesh); :func:`make_partitioned_engines` splits the visible
 devices into disjoint engines for concurrent callers (the service's
 ``--partitions`` pool).  Entry points run on ``device="cuda"`` unless the
 caller asks for the CPU; without CUDA they fail rather than fall back.
-Still to port (ROADMAP.md queue A): the spatial split (P9c) and CUDA-graph
-capture.
+Image rows split over devices (the spatial split, sp) are served by
+``parallel.batch.make_sharded_pipeline(spatial=True)``.  Still to port
+(ROADMAP.md queue A): CUDA-graph capture.
 """
 
 from __future__ import annotations

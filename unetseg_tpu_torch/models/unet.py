@@ -34,6 +34,7 @@ from typing import Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.overrides import handle_torch_function, has_torch_function_unary
 from torch.utils.checkpoint import checkpoint
 
 from unetseg_tpu_torch.config import ModelConfig
@@ -68,7 +69,10 @@ def stage_channels(cfg: ModelConfig) -> Sequence[int]:
 
 def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
     """(N, H, W, C) -> (N, H/r, W/r, r*r*C), channels ordered (dy, dx, c)
-    as in JAX (not ``pixel_unshuffle``'s (c, dy, dx))."""
+    as in JAX (not ``pixel_unshuffle``'s (c, dy, dx)).  Row-local: row bands
+    (``parallel.spatial.Bands``) take it band by band."""
+    if has_torch_function_unary(x):
+        return handle_torch_function(space_to_depth, (x,), x, r)
     n, h, w, c = x.shape
     x = x.reshape(n, h // r, r, w // r, r, c)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h // r, w // r, r * r * c)
@@ -76,12 +80,16 @@ def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
 
 def depth_to_space(x: torch.Tensor, r: int) -> torch.Tensor:
     """(N, H, W, r*r*C) -> (N, H*r, W*r, C), inverse of space_to_depth."""
+    if has_torch_function_unary(x):
+        return handle_torch_function(depth_to_space, (x,), x, r)
     n, h, w, c = x.shape
     x = x.reshape(n, h, w, r, r, c // (r * r))
     return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h * r, w * r, c // (r * r))
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    if has_torch_function_unary(x):
+        return handle_torch_function(max_pool_2x2, (x,), x)
     n, h, w, c = x.shape
     return x.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
 
@@ -223,8 +231,10 @@ class UNet(nn.Module):
         decoder level, head and argmax run in K6 (``ops.dec1``); otherwise
         (a stem-s model, s > 1, whose head is followed by depth-to-space, or
         a width or class count K6 does not take) the logits are argmaxed.
+        Row bands (``parallel.spatial.Bands``) take the unfused route too:
+        K6 reads the whole last level.
         """
-        if self.route == "unfused":
+        if self.route == "unfused" or has_torch_function_unary(x):
             return decode_mask(self(x), self.cfg.num_classes)
         x, skip = self._trunk(x)
         last = self.decoder[-1]

@@ -52,6 +52,7 @@ from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function_unary
 
 from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc, read_log
 
@@ -549,5 +550,9 @@ class Conv3x3Function(torch.autograd.Function):
 
 def conv3x3_bias_act_train(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                            relu: bool = True) -> torch.Tensor:
-    """:func:`conv3x3_bias_act` under autograd (:class:`Conv3x3Function`)."""
+    """:func:`conv3x3_bias_act` under autograd (:class:`Conv3x3Function`).
+    Row bands (``parallel.spatial.Bands``) take it with a halo exchange."""
+    if has_torch_function_unary(x):
+        return handle_torch_function(conv3x3_bias_act_train, (x,), x, w, b,
+                                     relu=relu)
     return Conv3x3Function.apply(x, w, b, relu)

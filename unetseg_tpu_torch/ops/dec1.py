@@ -36,6 +36,7 @@ import threading
 from typing import Dict, NamedTuple
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function_unary
 
 from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc, read_log
 from unetseg_tpu_torch.ops.conv import (HEADER, conv3x3_bias_act_plain,
@@ -226,7 +227,10 @@ def resources() -> list:
 def up_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """2x2 stride-2 transposed conv as one matmul + reshape: (N, H, W, Ci)
     x (Ci, 4*O) laid out (c, a, b, o) + (O,) -> (N, 2H, 2W, O), in the
-    inputs' dtype (``models.unet.UpConv``'s arithmetic)."""
+    inputs' dtype (``models.unet.UpConv``'s arithmetic).  Row-local: row
+    bands (``parallel.spatial.Bands``) take it band by band."""
+    if has_torch_function_unary(x):
+        return handle_torch_function(up_conv, (x,), x, w, b)
     n, h, wd, _ = x.shape
     o = b.shape[0]
     y = (x @ w).reshape(n, h, wd, 2, 2, o)

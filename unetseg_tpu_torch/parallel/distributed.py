@@ -3,9 +3,13 @@
 
 Inference splits across processes by whole studies (:func:`shard_studies`):
 each process serves its share on its own devices, with no traffic between
-processes.  :func:`initialize_distributed` starts ``torch.distributed`` from
-the same environment variables the JAX package reads, so a deployment's
-environment works unchanged; in a single process it is a no-op.
+processes.  Training does not: ``train.make_sharded_train_step`` in a
+multi-process run takes each process's rows of the global batch on that
+process's mesh (:func:`global_mesh`, dp and sp over its own devices) and
+sums the loss and the gradients over the processes.
+:func:`initialize_distributed` starts ``torch.distributed`` from the same
+environment variables the JAX package reads, so a deployment's environment
+works unchanged; in a single process it is a no-op.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 ``unetseg_tpu/parallel/mesh.py``.
 
 A mesh is a ``(dp, sp)`` array of ``torch.device``s: ``dp`` splits the
-batch of slices, ``sp`` would split image rows.  JAX annotates shardings and
+batch of slices, ``sp`` splits image rows.  JAX annotates shardings and
 lets XLA place the work; here the three sharding helpers are explicit
 functions on tensors:
 
@@ -10,9 +10,11 @@ functions on tensors:
   one per dp device, in the order of ``P("dp")``) and :func:`gather_batch`
   (the parts back on one device, in batch order);
 * ``replicated`` -> :func:`replicate` (one object per distinct device);
-* ``batch_spatial_sharding`` -> :func:`spatial_split`, which refuses: the
-  spatial split needs a halo exchange between devices, which XLA SPMD gives
-  the JAX package and the port does not have yet (ROADMAP.md queue A, P9c).
+* ``batch_spatial_sharding`` -> :func:`spatial_split` (the batch over dp,
+  then each part's rows over its sp row of devices, in bands of whole
+  units: :func:`band_rows`, :func:`split_rows`) and :func:`gather_rows`.
+  The halo exchange that XLA SPMD inserts around each conv is
+  ``parallel/spatial.py``'s.
 
 A device list may repeat a device (``["cpu"] * 4``, ``["cuda:0"] * 2``):
 the split is by position, so one machine can exercise it.
@@ -66,15 +68,18 @@ def dp_devices(mesh: Mesh) -> List[torch.device]:
 def split_batch(t: torch.Tensor, devices: Sequence[torch.device]
                 ) -> List[torch.Tensor]:
     """``t``'s leading axis in ``len(devices)`` contiguous equal parts, part
-    i copied to ``devices[i]`` (enqueued, not waited for).  The caller
-    checks that the batch divides."""
-    n = len(devices)
+    i copied to ``devices[i]`` (enqueued, not waited for); a batch that
+    does not divide raises ``ValueError``."""
+    return [p.to(d, non_blocking=True)
+            for p, d in zip(_batch_parts(t, len(devices)), devices)]
+
+
+def _batch_parts(t: torch.Tensor, n: int) -> List[torch.Tensor]:
     k = t.shape[0] // n
     if k * n != t.shape[0]:
         raise ValueError(f"batch {t.shape[0]} does not split over {n} "
                          f"devices")
-    return [t[i * k:(i + 1) * k].to(d, non_blocking=True)
-            for i, d in enumerate(devices)]
+    return [t[i * k:(i + 1) * k] for i in range(n)]
 
 
 def gather_batch(parts: Sequence[torch.Tensor], device: torch.device
@@ -94,8 +99,42 @@ def replicate(build: Callable[[torch.device], object],
     return [built[d] for d in devices]
 
 
-def spatial_split():
-    """Rows over ``sp``: refused (ROADMAP.md queue A, P9c)."""
-    from unetseg_tpu_torch.engine import not_ported
+def band_rows(h: int, sp: int, unit: int) -> List[range]:
+    """The rows of each of ``sp`` bands of an ``h``-row image: contiguous,
+    in order, each a whole number of ``unit`` rows, as even as that allows
+    (the first ``h // unit % sp`` bands one unit more, as ``np.array_split``
+    deals); a band is empty when there are fewer units than bands.  The
+    caller checks that ``unit`` divides ``h``."""
+    units, extra = divmod(h // unit, sp)
+    out, start = [], 0
+    for i in range(sp):
+        stop = start + (units + (i < extra)) * unit
+        out.append(range(start, stop))
+        start = stop
+    return out
 
-    raise not_ported("the spatial (sp) split", "P9c")
+
+def split_rows(t: torch.Tensor, devices: Sequence[torch.device], unit: int
+               ) -> List[torch.Tensor]:
+    """``t``'s rows (axis 1) in :func:`band_rows` bands, band i copied to
+    ``devices[i]`` (enqueued, not waited for); an empty band is a zero-row
+    tensor."""
+    rows = band_rows(t.shape[1], len(devices), unit)
+    return [t[:, r.start:r.stop].to(d, non_blocking=True)
+            for r, d in zip(rows, devices)]
+
+
+def gather_rows(parts: Sequence[torch.Tensor], device: torch.device
+                ) -> torch.Tensor:
+    """The bands on ``device``, their rows concatenated in order."""
+    return torch.cat([p.to(device, non_blocking=True) for p in parts], dim=1)
+
+
+def spatial_split(t: torch.Tensor, mesh: Mesh, unit: int
+                  ) -> List[List[torch.Tensor]]:
+    """JAX's ``P("dp", "sp")``: ``t``'s batch in contiguous parts over dp
+    (:func:`split_batch`'s parts), then each part's rows over its row of
+    the mesh (:func:`split_rows`): ``[dp][sp]`` tensors, each on its mesh
+    device."""
+    return [split_rows(p, mesh.devices[i], unit) for i, p in
+            enumerate(_batch_parts(t, mesh.shape["dp"]))]

@@ -17,7 +17,10 @@
   weight gradients and every other op are plain PyTorch, as JAX leaves
   them to XLA;
 * :func:`make_sharded_train_step` splits the batch over a mesh's dp
-  devices in one process; ``sp > 1`` is refused (ROADMAP.md queue A, P9c).
+  devices and, with ``sp > 1``, each part's image rows over its sp row of
+  devices (``parallel/spatial.py``: a halo exchange around every 3x3 conv);
+  in a multi-process run it reduces the loss and the gradients across the
+  processes too, each feeding its own rows of the global batch.
 
 A :class:`TrainState` holds the parameters as the port's state dict (the
 names of ``checkpoint.params_from_jax``, float32 tensors on one device), the
@@ -37,13 +40,14 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from unetseg_tpu_torch import checkpoint
 from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.models import registry
-from unetseg_tpu_torch.parallel import mesh as pmesh
+from unetseg_tpu_torch.parallel import distributed, mesh as pmesh, spatial
 
 MAGIC = b"UTPUTRAIN1\n"
 Params = Dict[str, torch.Tensor]
@@ -207,16 +211,21 @@ def _terms(logits, labels, cfg: ModelConfig, boundary_boost: float,
 
 
 def _combine(parts: Sequence[_Terms], device, distill: bool, alpha: float,
-             temperature: float) -> torch.Tensor:
+             temperature: float, denominators=None, one: float = 1.0
+             ) -> torch.Tensor:
+    """The loss from the parts' sums.  ``denominators`` (w, n_dice) replaces
+    the parts' own totals with the global batch's, and ``one`` the constant
+    of the Dice term, in a multi-process step: each process's loss is then
+    its share of the global loss (``one`` 1 on one process, 0 on the
+    others), and the shares sum to it."""
     def total(name):
         vals = [getattr(p, name).to(device) for p in parts]
         out = vals[0]
         for v in vals[1:]:
             out = out + v
         return out
-    w = total("w")
-    seg = total("ce") / w + (1.0 - total("dice") / sum(p.n_dice
-                                                        for p in parts))
+    w, n_dice = denominators or (total("w"), sum(p.n_dice for p in parts))
+    seg = total("ce") / w + (one - total("dice") / n_dice)
     if not distill:
         return seg
     t = temperature
@@ -254,17 +263,29 @@ def _as_tensor(a, device, dtype=None) -> torch.Tensor:
 
 def loss_and_grads(params: Params, batch, cfg: ModelConfig, *,
                    devices: Optional[Sequence[torch.device]] = None,
+                   bands: Optional[Sequence[Sequence[torch.device]]] = None,
                    boundary_boost: float = 0.0, distill: bool = False,
-                   alpha: float = 0.5, temperature: float = 2.0
+                   alpha: float = 0.5, temperature: float = 2.0,
+                   across_processes: bool = False
                    ) -> Tuple[torch.Tensor, Params]:
     """``jax.value_and_grad`` of :func:`segmentation_loss` (or, with
     ``distill``, of :func:`distillation_loss`; ``batch`` then carries the
     teacher's logits third).  With ``devices`` the batch is split over
     them (contiguous parts, one model replica per distinct device, the
     parameters copied there) and the gradients are summed on the
-    parameters' device; by default it runs whole there."""
+    parameters' device; by default it runs whole there.  With ``bands``
+    (per part, the devices of its mesh row) each part's image rows are cut
+    over those devices (``parallel/spatial.py``) and the float32 logits'
+    rows gathered back on the part's device, where the loss terms are
+    computed on the whole part.  ``across_processes``: the batch is this
+    process's rows of a global batch; the loss's denominators and then the
+    loss and the gradients are summed over the processes
+    (``torch.distributed``), so every process returns the global batch's."""
     home = next(iter(params.values())).device
     devices = [home] if devices is None else list(devices)
+    if bands is not None:
+        unit = spatial.row_unit(cfg)
+        spatial.check_rows(cfg, *np.shape(batch[0])[:3])
     replicas = pmesh.replicate(
         lambda d: _bound(cfg, {k: p.to(d) for k, p in params.items()}),
         devices)
@@ -276,10 +297,18 @@ def loss_and_grads(params: Params, batch, cfg: ModelConfig, *,
         imgs = parts[0][i].to(torch.float32)
         labels = parts[1][i].long()
         t_logits = parts[2][i].to(torch.float32) if distill else None
-        logits = model(imgs)
+        if bands is None:
+            logits = model(imgs)
+        else:
+            logits = spatial.gather(
+                model(spatial.split(imgs, bands[i], unit)), devices[i])
         terms.append(_terms(logits, labels, cfg, boundary_boost, t_logits,
                             temperature))
-    loss = _combine(terms, home, distill, alpha, temperature)
+    shares = {}
+    if across_processes:
+        shares = dict(denominators=_global_denominators(terms, home),
+                      one=float(distributed.process_index() == 0))
+    loss = _combine(terms, home, distill, alpha, temperature, **shares)
     models = list({id(m): m for m in replicas}.values())
     leaves = [dict(m.named_parameters()) for m in models]
     grads = torch.autograd.grad(loss, [p for lv in leaves
@@ -291,7 +320,34 @@ def loss_and_grads(params: Params, batch, cfg: ModelConfig, *,
             g = grads[i].to(home)
             out[k] = g if k not in out else out[k] + g
             i += 1
-    return loss.detach(), out
+    loss = loss.detach()
+    if across_processes:
+        loss, out = _sum_over_processes(loss, out)
+    return loss, out
+
+
+def _global_denominators(terms: Sequence[_Terms], device):
+    """(w, n_dice) of the global batch: this process's sums, summed over
+    the processes.  They do not depend on the parameters."""
+    local = torch.stack([sum(t.w.to(device, torch.float64) for t in terms),
+                         torch.tensor(float(sum(t.n_dice for t in terms)),
+                                      dtype=torch.float64, device=device)])
+    dist.all_reduce(local)
+    return local[0].to(torch.float32), local[1].item()
+
+
+def _sum_over_processes(loss: torch.Tensor, grads: Params
+                        ) -> Tuple[torch.Tensor, Params]:
+    """The loss shares and the gradients summed over the processes, in one
+    all-reduce."""
+    flat = torch.cat([loss.reshape(1)] + [g.reshape(-1)
+                                          for g in grads.values()])
+    dist.all_reduce(flat)
+    out, i = {}, 1
+    for k, g in grads.items():
+        out[k] = flat[i:i + g.numel()].view_as(g)
+        i += g.numel()
+    return flat[0], out
 
 
 def segmentation_loss(params: Params, batch, cfg: ModelConfig, *,
@@ -374,23 +430,30 @@ def make_sharded_train_step(cfg: ModelConfig, mesh: pmesh.Mesh,
                             distill: bool = False, alpha: float = 0.5,
                             temperature: float = 2.0) -> Callable:
     """``(state, batch) -> (state, loss)`` with the batch split over the
-    mesh's dp devices (contiguous parts, in the order of ``P("dp")``), in
-    one process: each part's forward and backward on its device, a model
-    replica per distinct device, the parts' loss sums and the gradients
-    gathered on the state's device, so the loss is the whole batch's (the
-    weighted means divide the summed numerators by the summed weights) and
-    the update the one-device step's, as JAX's jit over ``P("dp", "sp")``
-    gives.  ``distill=True``: the batch carries the teacher's logits third.
-    The batch must split evenly.  ``sp > 1`` is refused (P9c)."""
-    if mesh.shape["sp"] > 1:
-        pmesh.spatial_split()
+    mesh's dp devices (contiguous parts, in the order of ``P("dp")``): each
+    part's forward and backward on its device, a model replica per distinct
+    device, the parts' loss sums and the gradients gathered on the state's
+    device, so the loss is the whole batch's (the weighted means divide the
+    summed numerators by the summed weights) and the update the one-device
+    step's, as JAX's jit over ``P("dp", "sp")`` gives.  With ``sp > 1``
+    each part's image rows are cut over its mesh row (a halo exchange
+    around every 3x3 conv, ``parallel/spatial.py``) and the logits' rows
+    gathered on the part's device before the loss.  In a multi-process run
+    (``parallel.distributed.process_count() > 1``) the mesh is this
+    process's devices, the batch its own rows of the global batch, and the
+    loss and the gradients are the global batch's on every process.
+    ``distill=True``: the batch carries the teacher's logits third.  The
+    batch must split evenly."""
     devices = pmesh.dp_devices(mesh)
+    bands = ([list(row) for row in mesh.devices] if mesh.shape["sp"] > 1
+             else None)
+    across = distributed.process_count() > 1
 
     def step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
         loss, grads = loss_and_grads(
-            state.params, batch, cfg, devices=devices,
+            state.params, batch, cfg, devices=devices, bands=bands,
             boundary_boost=boundary_boost, distill=distill, alpha=alpha,
-            temperature=temperature)
+            temperature=temperature, across_processes=across)
         return _apply_grads(state, tx, loss, grads)
     return step
 
