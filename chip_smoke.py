@@ -218,7 +218,15 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``["cuda:0", "cuda:0"]`` splits a batch of 128 in two parts, masks
    bit-equal to the one-device engine's (ms per batch of both); its TTA is
    the mesh weight-space form, bit-equal to the sequential form; launches
-   exact.
+   exact.  The mesh forms of the modes (``partitions_modes``, P9d) on that
+   engine against the one-device engine, for slim4, the flagship and the
+   w8a8 slim4 (quantized on the card as in phase 21): windows on a 1536 x
+   2048 image (35 windows, 18 and 17 a part), the w8a8 TTA (4 views a
+   part), ``make_tta_batch_pipeline`` and ``make_tiled_batch_pipeline``
+   with ``mesh=``; counters set to 0 just before each call, launches
+   exactly the passes' convs (K7 for w8a8), no K6; masks bit-equal (a
+   float model may fall back to the near-tie bar, ``dec1.near_tie_sums``
+   at 4 ulps; the record names the bar that held).
 21. The w8a8 slim4 (``w8a8``, P11): K7 (``csrc/conv3x3_s8.cu``, TMA +
    ``wgmma`` s8) bit-equal to its plain versions in both epilogues (f32
    out; int8 out with one and with two scales) on phase 3's shapes and
@@ -289,14 +297,16 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``DISTILL_STEPS`` distillation steps, slim4 the student, the seeded
    flagship's logits the teacher.
 25. The spatial split (``spatial``, P9c): slim4 (bf16, 128), the seeded
-   flagship (32) and slim4 in float32 (128) through
+   flagship (32), slim4 in float32 (128) and the w8a8 slim4 (128, quantized
+   on the card as in phase 21; K7 on int8 halo slabs) through
    ``make_sharded_pipeline(spatial=True)`` over dp 1 x sp 2 and dp 2 x
    sp 2 on the card's positions (``SP_MESHES``), counters set to 0 just
    before each call: masks bit-equal to the one-device engine's unfused
-   route (else held to the near-tie rule, with the pixels that differ and
-   the first op where the bands part from the whole image logged);
-   launches exactly each forward's convs x its non-empty bands x dp, no
-   K6, 2 K3 a dp part; the exchange's bytes (``spatial.EXCHANGE``), ms per
+   route (a float model's else held to the near-tie rule, with the pixels
+   that differ and the first op where the bands part from the whole image
+   logged; the w8a8 model's must be bit-equal);
+   launches exactly each forward's convs (K7 for w8a8) x its non-empty
+   bands x dp, no K6, 2 K3 a dp part; the exchange's bytes (``spatial.EXCHANGE``), ms per
    batch against the dp engine, the one-device engine and its unfused
    route by CUDA events, the copies' share of the profiled device time.
    One flagship step (remat, batch 8) over dp 1 x sp 2 in bf16 and in
@@ -1574,16 +1584,17 @@ def tiled_phase(torch, np, name, ckpt, tmp, dev, card, ref_dev):
     eng_dev = engine.InferenceEngine(params, cfg, dev, device_postprocess=True)
     window, stride, n_windows = plan("big", None)
     _, i_stride, i_windows = plan("big", IRREGULAR_OVERLAP)
+    run = tiles.dp_logits(eng.model, None, None)[0]
     with torch.inference_mode():
-        lt = tiles._window_logits(eng.model, u8, window, stride)
-        lt_i = tiles._window_logits(eng.model, u8, window, i_stride)
+        lt = tiles._window_logits(run, u8, window, stride)
+        lt_i = tiles._window_logits(run, u8, window, i_stride)
         logits = tiles.blend_windows(lt, h, w, window, stride)
         mask = decode_mask(logits, cfg.num_classes)
         times = {
             "preprocess_ms": time_ms(torch, lambda: preprocess.normalize_u8(
                 raw_d), 5),
             "model_ms": time_ms(torch, lambda: tiles._window_logits(
-                eng.model, u8, window, stride), 3),
+                run, u8, window, stride), 3),
             "blend_ms": time_ms(torch, lambda: tiles.blend_windows(
                 lt, h, w, window, stride), 5),
             "irregular_blend_ms": time_ms(torch, lambda: tiles.blend_windows(
@@ -2988,6 +2999,28 @@ W8A8_LAUNCHES = {"conv3x3_s8": 10, "conv3x3_bias_act": 0,
                  "dec1_fused": 0}
 
 
+# Phase 20's mesh forms of the modes (P9d): the batch TTA's slices (32
+# views, 16 a part) and the batched windows' images (70 windows).
+DP_TTA_SLICES = 4
+DP_TILED_IMAGES = 2
+
+
+def quantize_slim4(np, tmp, dev):
+    """Phase 21's w8a8 slim4: models/flagship_slim4.ckpt calibrated on the
+    card on ``W8A8_CALIB``'s ``training_batch`` draws and written under
+    ``tmp``.  Returns (path, int8 tree, config)."""
+    from unetseg_tpu_torch import quantize
+    from unetseg_tpu_torch.data import training_batch
+
+    seed, n_batches, n = W8A8_CALIB
+    rng = np.random.default_rng(seed)
+    calib = [training_batch(rng, n)[0] for _ in range(n_batches)]
+    q_ckpt = os.path.join(tmp, "models", "flagship_slim4_w8a8.ckpt")
+    os.makedirs(os.path.dirname(q_ckpt), exist_ok=True)
+    q, qcfg = quantize.quantize_checkpoint(CKPT, q_ckpt, calib, device=dev)
+    return q_ckpt, q, qcfg
+
+
 def pool_clients(service, addr, paths, size, tmp, tag):
     """``N_CLIENTS`` concurrent clients, one single-file ``process`` each;
     returns their output dirs."""
@@ -3114,12 +3147,136 @@ def partitions_model(torch, np, name, ckpt, paths, tmp, dev, card):
     return total
 
 
+def forward_launches(model) -> dict:
+    """Kernel launches of one forward (logits) of a float family or of the
+    w8a8 UNet, K7's included."""
+    from unetseg_tpu_torch.quantize import W8A8UNet
+
+    if isinstance(model, W8A8UNet):
+        return {k: v for k, v in W8A8_LAUNCHES.items() if k != "dec1_fused"}
+    return {**convs_per_forward(model), "conv3x3_s8": 0}
+
+
+def dp_passes(tiles, rows, dp, ragged):
+    """Model passes of ``rows`` rows over dp parts (``mesh.split_ragged``'s
+    or ``split_batch``'s), each in chunks of ``tiles.MODEL_CHUNK``."""
+    k = -(-rows // dp) if ragged else rows // dp
+    return sum(-(-min(k, rows - i) // tiles.MODEL_CHUNK)
+               for i in range(0, rows, k))
+
+
+def check_dp_masks(torch, dec1, rec, got, want, float_model, sums):
+    """Masks of a mesh form against the one-device form: bit-equal; for a
+    float model, else equal but at near ties of the one-device logits
+    (``sums()``: logits and absolute head sums; 4 ulps).  Records the bar
+    that held."""
+    equal = torch.equal(got, want)
+    rec.update(bit_equal=equal, bar="bit_equal")
+    if equal:
+        return
+    if not float_model:
+        log(rec)
+        raise AssertionError(f"dp masks differ: {rec}")
+    logits, absum = sums()
+    differ = got != want
+    tie = dec1.near_tie_sums(logits, absum, ulps=CPU_TIE_ULPS)
+    rec.update(bar=f"near_tie_{CPU_TIE_ULPS}_ulps",
+               pixels_differ=int(differ.sum()),
+               not_near_tie=int((differ & ~tie).sum()))
+    if (differ & ~tie).any():
+        log(rec)
+        raise AssertionError(f"dp masks differ past near ties: {rec}")
+
+
+def partitions_modes(torch, np, models, u8, big, dev, card):
+    """Phase 20's mesh forms of the modes (P9d): for each of ``models``
+    ({name: (tree, config)}) an engine over ``DP_DEVICES`` against the
+    one-device engine, on windows of the (H, W) uint8 ``big`` and, for
+    w8a8, TTA of ``u8[0]``; then ``make_tta_batch_pipeline`` on ``u8`` and
+    ``make_tiled_batch_pipeline`` on ``big`` repeated, with ``mesh=`` the
+    engine's.  Counters set to 0 just before each mesh call; returns the
+    launches."""
+    from unetseg_tpu_torch import engine
+    from unetseg_tpu_torch.ops import conv_s8, dec1
+    from unetseg_tpu_torch.parallel import tiles, tta
+
+    total: dict = {}
+    dp = len(DP_DEVICES)
+    batch_big = big[None].repeat(DP_TILED_IMAGES, 1, 1)
+    h, w = big.shape
+    stride = TILED_WINDOW // 2
+    n_windows = (len(tiles.window_grid(h, TILED_WINDOW, stride))
+                 * len(tiles.window_grid(w, TILED_WINDOW, stride)))
+
+    slice_np = u8[0].cpu().numpy()  # infer_tta takes a host slice
+
+    def x_of(u8_2d):
+        return (u8_2d.float() / 255.0)[None, ..., None]
+
+    for name, (params, cfg) in models.items():
+        multi = engine.InferenceEngine(params, cfg, devices=list(DP_DEVICES))
+        single = engine.InferenceEngine(params, cfg, device=dev)
+        per_fwd = forward_launches(multi.model)
+        floats = cfg.arch != "unet_w8a8"
+        model = single.model
+        runs = [("windows", lambda e: e.infer_tiled(big, TILED_WINDOW),
+                 dp_passes(tiles, n_windows, dp, True),
+                 lambda: tiled_sums(torch, tiles, model, big, TILED_WINDOW)),
+                ("tta_batch", lambda e: tta.make_tta_batch_pipeline(
+                    e.models if e.mesh else e.model, mesh=e.mesh)(u8),
+                 dp_passes(tiles, tta.N_TRANSFORMS * u8.shape[0], dp, False),
+                 lambda: tuple(torch.cat(p) for p in zip(*[
+                     tta_sums(torch, tta, model, x_of(s)) for s in u8]))),
+                ("tiled_batch", lambda e: tiles.make_tiled_batch_pipeline(
+                    e.models if e.mesh else e.model, TILED_WINDOW, None,
+                    False, mesh=e.mesh)(batch_big),
+                 dp_passes(tiles, DP_TILED_IMAGES * n_windows, dp, True),
+                 lambda: tuple(torch.stack([p] * DP_TILED_IMAGES)
+                               for p in tiled_sums(torch, tiles, model, big,
+                                                   TILED_WINDOW)))]
+        if not floats:
+            runs.insert(1, ("tta", lambda e: e.infer_tta(slice_np), dp, None))
+        for mode, run, passes, sums in runs:
+            want_masks = run(single)
+            torch.cuda.synchronize()
+            reset_all_launches()
+            conv_s8.reset_launches()
+            got = run(multi)
+            torch.cuda.synchronize()
+            launches = {**all_launches(), **conv_s8.LAUNCHES}
+            want = {k: v * passes for k, v in per_fwd.items()}
+            want.update(dec1_fused=0, cc_label=0)
+            rec = {"phase": "partitions_modes", "model": name, "mode": mode,
+                   "devices": DP_DEVICES, "passes": passes,
+                   "launches": launches}
+            if mode == "tta":
+                rec["form"] = multi._tta[0]
+            check_dp_masks(torch, dec1, rec, got, want_masks, floats, sums)
+            log({**rec, **card})
+            if launches != want or rec.get("form", "act") != "act":
+                raise AssertionError(f"{name} dp {mode}: launches "
+                                     f"{launches}, want {want}: {rec}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+        del multi, single, model
+        torch.cuda.empty_cache()
+    return total
+
+
 def partitions_phase(torch, np, dev, card):
-    """Phase 20 for slim4 and the seeded flagship; returns launches."""
+    """Phase 20 for slim4 and the seeded flagship, then the mesh forms of
+    the modes for those and the w8a8 slim4; returns launches."""
+    from unetseg_tpu_torch import checkpoint
     from unetseg_tpu_torch.data import synth_slice
-    from unetseg_tpu_torch.io import raw as raw_io
+    from unetseg_tpu_torch.io import native, raw as raw_io
+    from unetseg_tpu_torch.ops import preprocess
 
     total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
     with tempfile.TemporaryDirectory() as tmp:
         in_dir = os.path.join(tmp, "in")
         os.makedirs(in_dir)
@@ -3127,10 +3284,20 @@ def partitions_phase(torch, np, dev, card):
         flag_ckpt, _ = flagship_checkpoint(torch, np,
                                            os.path.join(tmp, "flagship"), dev)
         for name, ckpt in (("slim4", CKPT), ("flagship", flag_ckpt)):
-            for k, v in partitions_model(torch, np, name, ckpt, paths, tmp,
-                                         dev, card).items():
-                total[k] = total.get(k, 0) + v
+            add(partitions_model(torch, np, name, ckpt, paths, tmp, dev,
+                                 card))
             torch.cuda.empty_cache()
+        _, q, qcfg = quantize_slim4(np, tmp, dev)
+        u8 = torch.from_numpy(np.stack([native.preprocess_u8(np.asarray(
+            raw_io.read_raw(p, 768, 768)), 512)
+            for p in paths[:DP_TTA_SLICES]])).to(dev)
+        h, w = TILED_RAW
+        big = preprocess.normalize_u8(torch.from_numpy(synth_slice(
+            np.random.default_rng(61), max(h, w))[0][:h, :w]).to(dev))
+        add(partitions_modes(torch, np, {
+            "slim4": checkpoint.load(CKPT),
+            "flagship": checkpoint.load(flag_ckpt),
+            "w8a8_slim4": (q, qcfg)}, u8, big, dev, card))
     return total
 
 
@@ -3306,8 +3473,7 @@ def w8a8_phase(torch, np, F, dev, card):
     counted runs' launches of the other kernels)."""
     from unetseg_tpu_torch import checkpoint, engine, metrics, quantize, \
         service
-    from unetseg_tpu_torch.data import synth_batch, synth_slice, \
-        training_batch
+    from unetseg_tpu_torch.data import synth_batch, synth_slice
     from unetseg_tpu_torch.io import native, raw as raw_io
     from unetseg_tpu_torch.models import registry
     from unetseg_tpu_torch.ops import conv, conv_s8, decode
@@ -3319,14 +3485,8 @@ def w8a8_phase(torch, np, F, dev, card):
 
     with tempfile.TemporaryDirectory() as tmp:
         # quantize on the card
-        seed, n_batches, n = W8A8_CALIB
-        rng = np.random.default_rng(seed)
-        calib = [training_batch(rng, n)[0] for _ in range(n_batches)]
-        q_ckpt = os.path.join(tmp, "models", "flagship_slim4_w8a8.ckpt")
-        os.makedirs(os.path.dirname(q_ckpt))
         t0 = time.perf_counter()
-        q, qcfg = quantize.quantize_checkpoint(CKPT, q_ckpt, calib,
-                                               device=dev)
+        q_ckpt, q, qcfg = quantize_slim4(np, tmp, dev)
         quantize_s = time.perf_counter() - t0
         params, cfg = checkpoint.load(CKPT)
         log({"phase": "w8a8_quantize", "seconds": quantize_s,
@@ -4398,7 +4558,8 @@ def train_flagship_phase(torch, np, F, dev, card):
 # make_sharded_pipeline(spatial=True) over the card's positions: (positions,
 # sp) = dp 1 x sp 2 and dp 2 x sp 2.
 SP_MESHES = ((2, 2), (4, 2))
-SP_MODELS = {"slim4": 128, "flagship": FLAGSHIP_BATCH, "slim4_f32": 128}
+SP_MODELS = {"slim4": 128, "flagship": FLAGSHIP_BATCH, "slim4_f32": 128,
+             "slim4_w8a8": 128}
 SP_ITERS = 5
 SP_PARTING_BATCH = 2
 SP_TRAIN_BATCH = 8
@@ -4457,11 +4618,13 @@ def spatial_model(torch, np, name, params, cfg, u8, dev, card):
     launches."""
     from unetseg_tpu_torch import engine
     from unetseg_tpu_torch.models import registry
-    from unetseg_tpu_torch.ops import dec1, decode, postprocess, preprocess
+    from unetseg_tpu_torch.ops import (conv_s8, dec1, decode, postprocess,
+                                       preprocess)
     from unetseg_tpu_torch.parallel import batch, mesh as pmesh, spatial
 
     model = registry.build(params, cfg, dev)
-    per_fwd = convs_per_forward(model)
+    per_fwd = forward_launches(model)
+    floats = cfg.arch != "unet_w8a8"
     unit = spatial.row_unit(cfg)
     x = preprocess.model_input_from_u8(u8)[..., None]
 
@@ -4482,10 +4645,12 @@ def spatial_model(torch, np, name, params, cfg, u8, dev, card):
         fn(params, u8)  # builds the replicas
         torch.cuda.synchronize()
         reset_all_launches()
+        conv_s8.reset_launches()
         spatial.reset_exchange()
         got = fn(params, u8)
         torch.cuda.synchronize()
-        launches, exchange = all_launches(), dict(spatial.EXCHANGE)
+        launches = {**all_launches(), **conv_s8.LAUNCHES}
+        exchange = dict(spatial.EXCHANGE)
         want = {k: v * bands * dp for k, v in per_fwd.items()}
         want.update(dec1_fused=0, cc_label=2 * dp)
         equal = torch.equal(got, ref)
@@ -4496,6 +4661,10 @@ def spatial_model(torch, np, name, params, cfg, u8, dev, card):
                "exchanges_per_forward": exchange["exchanges"] / dp,
                "halo_bytes_per_forward": exchange["halo_bytes"] / dp,
                "slab_bytes_per_forward": exchange["slab_bytes"] / dp}
+        if not equal and not floats:
+            log(rec)
+            raise AssertionError(f"{name} spatial masks over {n} positions "
+                                 f"differ from the one-device engine's")
         if not equal:
             # the raw masks under the near-tie bar, and where they part
             with torch.inference_mode():
@@ -4601,8 +4770,9 @@ def spatial_train(torch, np, dtype, dev, card):
 
 
 def spatial_phase(torch, np, dev, card):
-    """Phase 25 for slim4 (bf16 and float32) and the seeded flagship, then
-    the sp train steps; returns the launches and data-gradient launches."""
+    """Phase 25 for slim4 (bf16, float32 and w8a8) and the seeded flagship,
+    then the sp train steps; returns the launches and data-gradient
+    launches."""
     import dataclasses
 
     from unetseg_tpu_torch import checkpoint
@@ -4621,10 +4791,12 @@ def spatial_phase(torch, np, dev, card):
         u8 = torch.from_numpy(np.stack([native.preprocess_u8(np.asarray(
             raw_io.read_raw(p, 768, 768)), 512) for p in paths])).to(dev)
         slim_params, slim_cfg = checkpoint.load(CKPT)
+        _, q, qcfg = quantize_slim4(np, tmp, dev)
         models = {"slim4": (slim_params, slim_cfg),
                   "flagship": checkpoint.load(flag_ckpt),
                   "slim4_f32": (slim_params, dataclasses.replace(
-                      slim_cfg, compute_dtype="float32"))}
+                      slim_cfg, compute_dtype="float32")),
+                  "slim4_w8a8": (q, qcfg)}
         for name, n in SP_MODELS.items():
             batch = u8.repeat(-(-n // len(paths)), 1, 1)[:n]
             add(spatial_model(torch, np, name, *models[name], batch, dev,
@@ -5040,10 +5212,10 @@ def main() -> int:
     t0 = time.perf_counter()
     k7, w8a8_launches = w8a8_phase(torch, np, F, dev, card)
     log({"phase": "w8a8_seconds", "seconds": time.perf_counter() - t0})
+    kernels.append(k7)
     for k in kernels:
         k["launches"] += pool_launches.get(k["name"], 0) + \
             w8a8_launches.get(k["name"], 0)
-    kernels.append(k7)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     k8, f32_launches = f32_phase(torch, np, F, dev, card)

@@ -189,13 +189,6 @@ def test_rows_that_do_not_cut_raise_the_unsplit_error():
         assert str(got.value) == str(want.value)
 
 
-def test_w8a8_spatial_split_is_refused():
-    _, cfg = _cfgs(arch="unet_w8a8")
-    with pytest.raises(NotImplementedError, match="P9c-w8a8"):
-        batch.make_sharded_pipeline(
-            cfg, mesh.make_mesh(4, sp=2, devices=["cpu"] * 4), spatial=True)
-
-
 # ---------------------------------------------------------------------------
 # training over (dp, sp)
 # ---------------------------------------------------------------------------

@@ -63,12 +63,6 @@ EMITTERS = ("cv2", "native")
 ROUTERS = ("margin", "disagree", "both")
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to unetseg_tpu_torch yet (ROADMAP.md queue A, "
-        f"{item})")
-
-
 class InferenceEngine:
     """The model on one device, or a replica on each of several, plus the
     batch sizes already warmed up."""
@@ -97,7 +91,7 @@ class InferenceEngine:
             lambda d: model_registry.build(params, cfg, d), self.devices)
         self.model = self.models[0]
         self._warm: set = set()
-        self._tta = None  # (form, ensemble), built at first use
+        self._tta = None  # (form, ensemble, passes), built at first use
         #: Model passes run (a TTA call makes 8, a tiled image one per
         #: chunk of windows, a cascade call one per model it runs), so a
         #: caller can hold kernel launch counts against them.
@@ -210,32 +204,37 @@ class InferenceEngine:
         * a float family otherwise: the weight-space ensemble on the first
           device, 8 passes of the untransposed slice through models whose
           kernels carry the inverse transforms;
-        * ``unet_w8a8``: the activation-space ensemble, one pass of the 8
-          views (its activation scales are not transform-aware).
+        * ``unet_w8a8``: the activation-space ensemble (its activation
+          scales are not transform-aware): the 8 views over the devices in
+          one pass a device when their count divides 8, else one pass of
+          the 8 views on the first device.
 
         Every pass runs the model's ``forward``: the logits are averaged
         before the argmax, and the fused last level (K6) returns masks
         only, so a stem-1 model's last level runs in the conv kernel here."""
         if self._tta is None:
             post = self.device_postprocess
+            split = self.mesh is not None and \
+                tta.N_TRANSFORMS % self.mesh.shape["dp"] == 0
             if self.cfg.arch == "unet_w8a8":
                 self._tta = ("act", tta.make_tta_pipeline(
-                    self.model, device_postprocess=post))
-            elif self.mesh is not None and \
-                    tta.N_TRANSFORMS % self.mesh.shape["dp"] == 0:
+                    self.models if split else self.model,
+                    device_postprocess=post,
+                    mesh=self.mesh if split else None),
+                    len(self.devices) if split else 1)
+            elif split:
                 self._tta = ("ws", tta.make_tta_weightspace_mesh_pipeline(
                     self.params, self.cfg, self.mesh,
-                    device_postprocess=post))
+                    device_postprocess=post), tta.N_TRANSFORMS)
             else:
                 self._tta = ("ws", tta.make_tta_weightspace_pipeline(
                     self.params, self.cfg, self.device,
-                    device_postprocess=post))
-        form, ensemble = self._tta
+                    device_postprocess=post), tta.N_TRANSFORMS)
+        form, ensemble, passes = self._tta
         u8 = self._put(np.asarray(u8_2d, np.uint8))
+        self.forwards += passes
         if form == "act":
-            self.forwards += 1
             return ensemble(u8)
-        self.forwards += tta.N_TRANSFORMS
         return ensemble(u8[None])[0]
 
     def infer_tiled(self, u8_2d, window: int,
@@ -250,14 +249,17 @@ class InferenceEngine:
         the argmax, so the device cleanup's 6%-of-area threshold sees the
         image's own size.  The windows run ``UNet.forward`` in chunks of
         ``tiles.MODEL_CHUNK``, each chunk one count of :attr:`forwards`:
-        their logits are blended before the argmax, so no K6."""
+        their logits are blended before the argmax, so no K6.  On several
+        devices the windows split over them, as JAX's engine shards them
+        over its mesh whatever their count (``tiles.dp_logits``), and
+        the blend runs on the first device."""
         u8 = (u8_2d.to(self.device) if isinstance(u8_2d, torch.Tensor)
               else self._put(np.asarray(u8_2d, np.uint8)))
         window, overlap = self.tile_window(*u8.shape, window, overlap)
         pipeline = tiles.make_tiled_pipeline(
-            self.model, window=window, overlap=overlap,
-            device_postprocess=self.device_postprocess,
-            on_pass=self._count_pass)
+            self.model if self.mesh is None else self.models, window=window,
+            overlap=overlap, device_postprocess=self.device_postprocess,
+            on_pass=self._count_pass, mesh=self.mesh)
         return pipeline(u8)
 
     def tile_window(self, h: int, w: int, window: int,

@@ -35,6 +35,7 @@ from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function_unary
 
 from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc, read_log
 from unetseg_tpu_torch.ops.conv import (_ERRORS, HEADER, TilePlan,
@@ -124,7 +125,10 @@ def quant_act(x: torch.Tensor, act_scale: torch.Tensor) -> torch.Tensor:
     """f32 activations -> int8, as JAX's ``_quant_act``:
     ``clip(round(x / s), -127, 127)``, rounding half to even.  A division,
     not a product with the reciprocal: one ulp at a .5 boundary changes an
-    int8 value."""
+    int8 value.  Elementwise: row bands (``parallel.spatial.Bands``) take
+    it band by band."""
+    if has_torch_function_unary(x):
+        return handle_torch_function(quant_act, (x,), x, act_scale)
     return torch.clamp(torch.round(x / act_scale), -127, 127).to(torch.int8)
 
 
@@ -252,7 +256,11 @@ def conv3x3_s8(x_q: torch.Tensor, w_k: torch.Tensor, scale: torch.Tensor,
     """3x3 stride-1 SAME conv of int8 ``x_q`` (B,H,W,C) with K-major int8
     ``w_k`` (3,3,D,C), int32 sums, then ``float(acc) * scale + bias``
     (+ ReLU) -> f32 (B,H,W,D).  x and w must be contiguous and 16-byte
-    aligned on CUDA."""
+    aligned on CUDA.  Row bands (``parallel.spatial.Bands``) take it with a
+    halo exchange."""
+    if has_torch_function_unary(x_q):
+        return handle_torch_function(conv3x3_s8, (x_q,), x_q, w_k, scale,
+                                     bias, relu=relu)
     _check(x_q, w_k, scale, bias)
     if x_q.device.type == "cpu":
         return conv3x3_s8_plain(x_q, w_k, scale, bias, relu)
@@ -267,7 +275,12 @@ def conv3x3_s8_q(x_q: torch.Tensor, w_k: torch.Tensor, scale: torch.Tensor,
     scale of ``out_scales`` (one or two one-element f32 tensors on x's
     device, e.g. the next sites' ``act_scale``), each
     ``quant_act(conv3x3_s8(...), s)`` bit for bit.  No host sync: the
-    kernel reads the scales on the card."""
+    kernel reads the scales on the card.  Row bands
+    (``parallel.spatial.Bands``) take it with a halo exchange, one
+    :class:`~unetseg_tpu_torch.parallel.spatial.Bands` a scale."""
+    if has_torch_function_unary(x_q):
+        return handle_torch_function(conv3x3_s8_q, (x_q,), x_q, w_k, scale,
+                                     bias, out_scales, relu=relu)
     _check(x_q, w_k, scale, bias)
     _check_scales(x_q, out_scales)
     if x_q.device.type == "cpu":

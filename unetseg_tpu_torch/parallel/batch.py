@@ -16,7 +16,8 @@ batch over dp, each part's rows over its sp row of devices
 (``mesh.spatial_split``), the model and the argmax on the row bands with a
 halo exchange around every 3x3 conv (``parallel/spatial.py``), the masks'
 rows gathered on the part's dp device and cleaned there, the parts gathered
-on the first device in batch order.
+on the first device in batch order.  Every family is served so, the w8a8
+UNet included: its 3x3 convs run in K7 on int8 halo slabs.
 """
 
 from __future__ import annotations
@@ -53,11 +54,6 @@ def _dp_engine(cfg: ModelConfig, mesh: pmesh.Mesh) -> Callable:
 
 
 def _spatial_pipeline(cfg: ModelConfig, mesh: pmesh.Mesh) -> Callable:
-    if cfg.arch == "unet_w8a8":
-        from unetseg_tpu_torch.engine import not_ported
-
-        raise not_ported("the spatial (sp) split of the w8a8 UNet",
-                         "P9c-w8a8")
     devices = pmesh.dp_devices(mesh)
     models = _per_params(lambda params: pmesh.replicate(
         lambda d: registry.build(params, cfg, d), devices))

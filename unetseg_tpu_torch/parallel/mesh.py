@@ -7,8 +7,9 @@ lets XLA place the work; here the three sharding helpers are explicit
 functions on tensors:
 
 * ``batch_sharding`` -> :func:`split_batch` (contiguous parts of the batch,
-  one per dp device, in the order of ``P("dp")``) and :func:`gather_batch`
-  (the parts back on one device, in batch order);
+  one per dp device, in the order of ``P("dp")``; :func:`split_ragged` for a
+  count that does not divide) and :func:`gather_batch` (the parts back on
+  one device, in batch order);
 * ``replicated`` -> :func:`replicate` (one object per distinct device);
 * ``batch_spatial_sharding`` -> :func:`spatial_split` (the batch over dp,
   then each part's rows over its sp row of devices, in bands of whole
@@ -80,6 +81,17 @@ def _batch_parts(t: torch.Tensor, n: int) -> List[torch.Tensor]:
         raise ValueError(f"batch {t.shape[0]} does not split over {n} "
                          f"devices")
     return [t[i * k:(i + 1) * k] for i in range(n)]
+
+
+def split_ragged(t: torch.Tensor, devices: Sequence[torch.device]
+                 ) -> List[torch.Tensor]:
+    """``t``'s leading axis in contiguous parts of ``ceil(n / len(devices))``
+    rows, the last one shorter, part i copied to ``devices[i]`` (enqueued,
+    not waited for): an uneven count splits too, as GSPMD pads JAX's
+    ``P("dp")``, and the devices past the last row get no part."""
+    k = -(-t.shape[0] // len(devices))
+    return [t[i:i + k].to(d, non_blocking=True)
+            for i, d in zip(range(0, t.shape[0], k), devices)]
 
 
 def gather_batch(parts: Sequence[torch.Tensor], device: torch.device

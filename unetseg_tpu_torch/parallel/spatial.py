@@ -11,20 +11,24 @@ it unchanged, every band in lockstep in one call:
 * every op but the 3x3 conv is row-local once the bands are cut in units of
   ``f = stem * 2**depth`` input rows (:func:`row_unit`): space-to-depth and
   depth-to-space, the 2x2 max-pool, the 2x2 stride-2 up-conv, the 1x1 convs
-  and heads, the attention gates, the concats and the argmax.  ``Bands``
+  and heads, the attention gates, the concats, the argmax, and the w8a8
+  UNet's activation quantize and int8 products.  ``Bands``
   maps each over the bands: torch's functions and the model helpers that
   take part in ``torch.overrides`` (``has_torch_function_unary``) through
   ``__torch_function__``, operators and the ``to``/``float`` methods
   directly; a tensor argument (a weight) is copied to the band's device;
-* the 3x3 conv (``ops.conv.conv3x3_bias_act_train``) exchanges halos
+* the 3x3 conv (``ops.conv.conv3x3_bias_act_train``; the w8a8 UNet's
+  ``ops.conv_s8.conv3x3_s8_q`` and ``conv3x3_s8``) exchanges halos
   (:func:`halo_slabs`): each band's slab is its rows with the last row of
   the band above and the first row of the band below, zero rows at the
   image's top and bottom edges; the conv runs on the (h + 2)-row slab
-  through the same entry as a whole image (K1/K2 in bf16, K8 in float32 on
-  the card), and the slab's first and last output rows are dropped.  The
+  through the same entry as a whole image (K1/K2 in bf16, K8 in float32,
+  K7 on int8 on the card), and the slab's first and last output rows are
+  dropped, from each output of a conv that writes one a consumer.  The
   kernels' tile plans depend on C, D and W only, so a band's rows come out
   of the same kernel instantiation, in the same k-order, as the whole
-  image's.
+  image's.  An int8 slab's zero edge rows are what the whole image's
+  padding reads: the activation quantize is symmetric, round(0 / s) = 0.
 
 No band ever holds the whole activation and nothing is gathered before a
 conv.  Lockstep needs no thread and no barrier, so autograd and ``remat``
@@ -44,12 +48,12 @@ import torch
 
 from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.models.unet import max_pool_2x2, space_to_depth
-from unetseg_tpu_torch.ops import conv
+from unetseg_tpu_torch.ops import conv, conv_s8
 from unetseg_tpu_torch.parallel import mesh as pmesh
 
 #: What the halo exchanges moved since the last :func:`reset_exchange`:
 #: exchanges (one per 3x3 conv), bytes of neighbour rows copied into the
-#: slabs, bytes of the slabs assembled.
+#: slabs, bytes of the slabs assembled (int8 for the w8a8 UNet).
 EXCHANGE: Dict[str, int] = {"exchanges": 0, "halo_bytes": 0,
                             "slab_bytes": 0}
 
@@ -101,8 +105,8 @@ class Bands:
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func is conv.conv3x3_bias_act_train:
-            return _halo_conv(*args, **kwargs)
+        if func in _HALO_CONVS:
+            return _halo_conv(func, args, kwargs)
         return _map(func, args, kwargs)
 
     def to(self, *args, **kwargs) -> "Bands":
@@ -188,15 +192,29 @@ def halo_slabs(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return out
 
 
-def _halo_conv(x: Bands, w: torch.Tensor, b: torch.Tensor,
-               relu: bool = True) -> Bands:
-    """``conv3x3_bias_act_train`` of the whole image, band by band: the conv
-    of each band's halo slab, its first and last output rows dropped.  Under
-    autograd the gradient of a slab's edge rows flows back to the
-    neighbour's rows through the exchange's copies."""
-    return Bands([conv.conv3x3_bias_act_train(
-        s, w.to(s.device), b.to(s.device), relu)[:, 1:-1]
-        for s in halo_slabs(x.parts)])
+#: The 3x3 convs: each takes its input, the first argument, as a halo slab.
+_HALO_CONVS = (conv.conv3x3_bias_act_train, conv_s8.conv3x3_s8,
+               conv_s8.conv3x3_s8_q)
+
+
+def _halo_conv(func, args, kwargs):
+    """``func``, one of :data:`_HALO_CONVS`, of the whole image band by
+    band: on each band's halo slab (``args[0]`` a :class:`Bands`, every
+    other tensor copied to the band's device), the first and last output
+    rows dropped; a conv that returns a list of outputs (``conv3x3_s8_q``,
+    one per out scale) gives a list of :class:`Bands`.  Under autograd the
+    gradient of a slab's edge rows flows back to the neighbour's rows
+    through the exchange's copies."""
+    x, rest = args[0], args[1:]
+    outs = []
+    for s in halo_slabs(x.parts):
+        a = _band_arg(rest, 0, s.device, 1)
+        kw = {k: _band_arg(v, 0, s.device, 1) for k, v in kwargs.items()}
+        outs.append(func(s, *a, **kw))
+    if isinstance(outs[0], list):
+        return [Bands([o[j][:, 1:-1] for o in outs])
+                for j in range(len(outs[0]))]
+    return Bands([o[:, 1:-1] for o in outs])
 
 
 def split(t: torch.Tensor, devices: Sequence[torch.device], unit: int

@@ -14,19 +14,28 @@ take 7.5 GB per 64-channel layer in one batch.  The f32 logits of all
 windows are gathered, then blended once, so the result is the JAX
 function's.  The blend is plain PyTorch: the overlap-add form on a regular
 grid, the padded-stack form (summed in window order) on an irregular one.
+
+With ``mesh=`` (JAX's keyword: the window batch sharded over ``dp``) the
+windows split over the mesh's dp devices in contiguous parts of
+``ceil(n / dp)`` windows, the last one shorter (``mesh.split_ragged``; JAX's
+GSPMD pads an uneven count instead), each part through that device's
+replica in passes of :data:`MODEL_CHUNK`; the logits are gathered on the
+image's device in window order and blended there.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.ops import postprocess
 from unetseg_tpu_torch.ops.decode import decode_mask
+from unetseg_tpu_torch.parallel import mesh as pmesh
 
 #: Windows per model pass: the flagship's serving batch.
 MODEL_CHUNK = 32
@@ -169,15 +178,47 @@ def chunked_logits(model: nn.Module, x: torch.Tensor,
         parts.append(model(x[i:i + MODEL_CHUNK]))
         if on_pass is not None:
             on_pass()
-    return torch.cat(parts)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def _window_logits(model: nn.Module, u8: torch.Tensor, window: int,
-                   stride: int, on_pass=None) -> torch.Tensor:
-    """(H, W) uint8 -> (n, window, window, C) f32 logits: windows cut on
-    u8, each cast to u8/255 after."""
+Models = Union[nn.Module, Sequence[nn.Module]]
+
+
+def dp_logits(model: Models, mesh: Optional[pmesh.Mesh], split: Callable,
+              on_pass: Optional[Callable[[], None]] = None
+              ) -> Tuple[Callable[[torch.Tensor], torch.Tensor], ModelConfig]:
+    """(x -> f32 logits of NHWC ``x``, the model's config), as the mesh
+    forms run a model.  Without a mesh, :func:`chunked_logits` of
+    ``model``.  With one, ``model`` is one module a dp device of the mesh,
+    module i on dp device i (the engine's replicas,
+    ``InferenceEngine.models``): ``split(x, devices)`` (``mesh.split_batch``
+    or ``mesh.split_ragged``) cuts x's rows into contiguous parts, part i
+    runs through module i in passes of :data:`MODEL_CHUNK`, and the logits
+    are gathered on x's device in row order.  ``on_pass`` is called once
+    per pass."""
+    if mesh is None:
+        return (lambda x: chunked_logits(model, x, on_pass)), model.cfg
+    devices = pmesh.dp_devices(mesh)
+    models = [model] if isinstance(model, nn.Module) else list(model)
+    if len(models) != len(devices):
+        raise ValueError(f"mesh=: one model a dp device, got {len(models)} "
+                         f"for dp={len(devices)}")
+
+    def run(x: torch.Tensor) -> torch.Tensor:
+        return pmesh.gather_batch(
+            [chunked_logits(m, p, on_pass)
+             for m, p in zip(models, split(x, devices))], x.device)
+    return run, models[0].cfg
+
+
+def _window_logits(logits_of: Callable[[torch.Tensor], torch.Tensor],
+                   u8: torch.Tensor, window: int, stride: int
+                   ) -> torch.Tensor:
+    """(H, W) uint8 -> (n, window, window, C) f32 logits by ``logits_of``
+    (:func:`dp_logits`' function): windows cut on u8, each cast to u8/255
+    after."""
     tiles = extract_windows(u8, window, stride)[..., None]
-    return chunked_logits(model, tiles.to(torch.float32) / 255.0, on_pass)
+    return logits_of(tiles.to(torch.float32) / 255.0)
 
 
 def sliding_window_logits(model: nn.Module, img_f32: torch.Tensor,
@@ -195,28 +236,30 @@ def sliding_window_logits(model: nn.Module, img_f32: torch.Tensor,
     return out[:h, :w] if (ph or pw) else out
 
 
-def make_tiled_pipeline(model: nn.Module, window: int = 512, overlap=None,
-                        device_postprocess: bool = True, on_pass=None):
+def make_tiled_pipeline(model: Models, window: int = 512, overlap=None,
+                        device_postprocess: bool = True, on_pass=None,
+                        mesh: Optional[pmesh.Mesh] = None):
     """(H, W) uint8 on the model's device -> (H, W) uint8 mask, by sliding
     windows through ``model`` (the logits of ``UNet.forward``).  A padded
     image's logits are cropped before the argmax, so the cleanup sees the
     image's own size.  ``device_postprocess=False`` stops at the argmax,
     for the engine's host cleanup.  ``overlap=None`` means window / 2;
-    ``on_pass`` is called once per model pass."""
+    ``on_pass`` is called once per model pass.  ``mesh``: the windows
+    split over its dp devices, ``model`` one replica a dp device
+    (:func:`dp_logits`), the blend on the image's device."""
     ov = _resolve_overlap(window, overlap)
-    num_classes = model.cfg.num_classes
+    logits_of, cfg = dp_logits(model, mesh, pmesh.split_ragged, on_pass)
 
     @torch.inference_mode()
     def pipeline(u8: torch.Tensor) -> torch.Tensor:
         h, w = u8.shape
         u8, ph, pw = _pad_to_window(u8, window)
         stride = window - ov
-        logits = blend_windows(_window_logits(model, u8, window, stride,
-                                              on_pass),
+        logits = blend_windows(_window_logits(logits_of, u8, window, stride),
                                h + ph, w + pw, window, stride)
         if ph or pw:
             logits = logits[:h, :w]
-        mask = decode_mask(logits, num_classes)
+        mask = decode_mask(logits, cfg.num_classes)
         if device_postprocess:
             mask = postprocess.postprocess_masks(mask[None].contiguous())[0]
         return mask
@@ -224,13 +267,16 @@ def make_tiled_pipeline(model: nn.Module, window: int = 512, overlap=None,
     return pipeline
 
 
-def make_tiled_batch_pipeline(model: nn.Module, window: int = 512,
-                              overlap=None, device_postprocess: bool = True):
+def make_tiled_batch_pipeline(model: Models, window: int = 512,
+                              overlap=None, device_postprocess: bool = True,
+                              mesh: Optional[pmesh.Mesh] = None):
     """(B, H, W) uint8 -> (B, H, W) masks: the windows of all B images go
     through the model together, in chunks; each image is blended on its
-    own.  ``overlap=None`` means window / 2."""
+    own.  ``overlap=None`` means window / 2.  ``mesh``: the B * n windows
+    split over its dp devices, ``model`` one replica a dp device
+    (:func:`dp_logits`)."""
     ov = _resolve_overlap(window, overlap)
-    num_classes = model.cfg.num_classes
+    logits_of, cfg = dp_logits(model, mesh, pmesh.split_ragged)
 
     @torch.inference_mode()
     def pipeline(u8b: torch.Tensor) -> torch.Tensor:
@@ -241,13 +287,13 @@ def make_tiled_batch_pipeline(model: nn.Module, window: int = 512,
                              for im in u8b])
         n = tiles.shape[1]
         flat = tiles.reshape(b * n, window, window, 1)
-        logit_flat = chunked_logits(model, flat.to(torch.float32) / 255.0)
+        logit_flat = logits_of(flat.to(torch.float32) / 255.0)
         logit_tiles = logit_flat.reshape(b, n, window, window, -1)
         logits = torch.stack([blend_windows(lt, h + ph, w + pw, window,
                                             stride) for lt in logit_tiles])
         if ph or pw:
             logits = logits[:, :h, :w]
-        mask = decode_mask(logits, num_classes)
+        mask = decode_mask(logits, cfg.num_classes)
         if device_postprocess:
             mask = postprocess.postprocess_masks(mask.contiguous())
         return mask

@@ -7,7 +7,9 @@ averaged, and the mean is decoded.  Two forms, with equal masks but at near
 ties:
 
 * activation space (:func:`make_tta_pipeline`, :func:`make_tta_batch_pipeline`):
-  the 8 views as one batch through one model;
+  the 8 views as one batch through one model, or with ``mesh=`` split over
+  the mesh's dp devices, a replica of the model on each (the engine serves
+  this form for ``unet_w8a8`` over its devices when their count divides 8);
 * weight space (:func:`make_tta_weightspace_pipeline`): conv, pool, concat,
   space-to-depth and depth-to-space are dihedral-equivariant, so 8 models
   whose kernels carry the inverse transform (:func:`transform_params_dihedral`)
@@ -34,7 +36,8 @@ from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.models import registry
 from unetseg_tpu_torch.ops import postprocess
 from unetseg_tpu_torch.ops.decode import decode_mask
-from unetseg_tpu_torch.parallel.tiles import chunked_logits
+from unetseg_tpu_torch.parallel import mesh as pmesh
+from unetseg_tpu_torch.parallel.tiles import Models, dp_logits
 
 N_TRANSFORMS = 8
 
@@ -207,8 +210,6 @@ def make_tta_weightspace_mesh_pipeline(params: dict, cfg: ModelConfig,
     first device in variant order, so the masks are bit-equal to
     :func:`make_tta_weightspace_pipeline`'s (JAX sums per device, then
     across: another order of the f32 sum)."""
-    from unetseg_tpu_torch.parallel import mesh as pmesh
-
     devices = pmesh.dp_devices(mesh)
     if N_TRANSFORMS % len(devices):
         raise ValueError(f"{N_TRANSFORMS} weight variants do not split "
@@ -235,32 +236,42 @@ def make_tta_weightspace_mesh_pipeline(params: dict, cfg: ModelConfig,
     return pipeline
 
 
-def make_tta_pipeline(model: nn.Module, device_postprocess: bool = True
-                      ) -> Callable:
+def make_tta_pipeline(model: Models, device_postprocess: bool = True,
+                      mesh=None) -> Callable:
     """(H, W) uint8 -> (H, W) mask: the 8 views of one slice as one batch
-    through ``model``, transformed back and averaged."""
-    num_classes = model.cfg.num_classes
+    through ``model``, transformed back and averaged.  ``mesh`` (JAX's
+    keyword; needs ``N_TRANSFORMS % dp == 0``): the views split over its dp
+    devices in contiguous parts, ``model`` one replica a dp device
+    (``tiles.dp_logits``); the logits are gathered on the slice's device in
+    view order before the inverse transforms and the mean, so the masks are
+    the one-device form's."""
+    if mesh is not None and N_TRANSFORMS % mesh.shape["dp"]:
+        raise ValueError(f"{N_TRANSFORMS} views do not split over "
+                         f"dp={mesh.shape['dp']}")
+    logits_of, cfg = dp_logits(model, mesh, pmesh.split_batch)
 
     @torch.inference_mode()
     def pipeline(u8: torch.Tensor) -> torch.Tensor:
         x = u8.to(torch.float32) / 255.0
         batch = torch.stack([dihedral(x, k)
                              for k in range(N_TRANSFORMS)])[..., None]
-        logits = model(batch)
+        logits = logits_of(batch)
         undone = torch.stack([dihedral_inverse(logits[k], k)
                               for k in range(N_TRANSFORMS)])
-        return _finish(undone.mean(dim=0)[None], num_classes,
+        return _finish(undone.mean(dim=0)[None], cfg.num_classes,
                        device_postprocess)[0]
 
     return pipeline
 
 
-def make_tta_batch_pipeline(model: nn.Module, device_postprocess: bool = False
-                            ) -> Callable:
+def make_tta_batch_pipeline(model: Models, device_postprocess: bool = False,
+                            mesh=None) -> Callable:
     """(N, H, W) uint8 -> (N, H, W) masks: the N * 8 views of a batch
     through ``model`` (in chunks of ``tiles.MODEL_CHUNK``), each slice's 8
-    transformed back and averaged."""
-    num_classes = model.cfg.num_classes
+    transformed back and averaged.  ``mesh``: the N * 8 rows split over its
+    dp devices in contiguous parts (a dp that does not divide them raises),
+    ``model`` one replica a dp device (``tiles.dp_logits``)."""
+    logits_of, cfg = dp_logits(model, mesh, pmesh.split_batch)
 
     @torch.inference_mode()
     def pipeline(u8b: torch.Tensor) -> torch.Tensor:
@@ -268,11 +279,12 @@ def make_tta_batch_pipeline(model: nn.Module, device_postprocess: bool = False
         views = torch.stack([dihedral(x, k).permute(2, 0, 1)
                              for k in range(N_TRANSFORMS)], dim=1)
         n, t, h, w = views.shape
-        logits = chunked_logits(model, views.reshape(n * t, h, w)[..., None])
+        logits = logits_of(views.reshape(n * t, h, w)[..., None])
         logits = logits.reshape(n, t, h, w, -1)
         undone = torch.stack([
             dihedral_inverse(logits[:, k].permute(1, 2, 0, 3), k)
             .permute(2, 0, 1, 3) for k in range(N_TRANSFORMS)], dim=1)
-        return _finish(undone.mean(dim=1), num_classes, device_postprocess)
+        return _finish(undone.mean(dim=1), cfg.num_classes,
+                       device_postprocess)
 
     return pipeline

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.overrides import handle_torch_function, has_torch_function_unary
 
 from unetseg_tpu_torch import checkpoint
 from unetseg_tpu_torch.config import ModelConfig
@@ -299,34 +300,59 @@ class W8A8Conv3x3(_Site):
                             out_scales, relu=True)
 
 
+def up_conv_s8(x_q: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """The w8a8 2x2 stride-2 transposed conv (``_up2_w8a8``): int8 ``x_q``
+    (N, H, W, C) @ int8 ``weight`` (C, 4D) laid out (c, a, b, d) -> exact
+    int32 sums, the subpixel rearrange, then :func:`dequant` with ``scale``
+    and ``bias`` (D,), no ReLU -> f32 (N, 2H, 2W, D).  Row-local: row bands
+    (``parallel.spatial.Bands``) take it band by band."""
+    if has_torch_function_unary(x_q):
+        return handle_torch_function(up_conv_s8, (x_q,), x_q, weight, scale,
+                                     bias)
+    n, h, w, c = x_q.shape
+    d = bias.shape[0]
+    acc = int8_matmul(x_q.reshape(-1, c), weight)
+    acc = acc.reshape(n, h, w, 2, 2, d).permute(0, 1, 3, 2, 4, 5)
+    return dequant(acc.reshape(n, 2 * h, 2 * w, d), scale, bias, relu=False)
+
+
+def conv1x1_s8(x_q: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """The w8a8 1x1 conv (the head): int8 ``x_q`` (..., C) @ int8 ``weight``
+    (C, D) -> exact int32 sums, then :func:`dequant`, no ReLU -> f32
+    (..., D).  Pixel-local: row bands (``parallel.spatial.Bands``) take it
+    band by band."""
+    if has_torch_function_unary(x_q):
+        return handle_torch_function(conv1x1_s8, (x_q,), x_q, weight, scale,
+                                     bias)
+    c, d = weight.shape
+    acc = int8_matmul(x_q.reshape(-1, c), weight)
+    return dequant(acc.reshape(*x_q.shape[:-1], d), scale, bias, relu=False)
+
+
 class W8A8UpConv(_Site):
     """2x2 stride-2 transposed conv as an int8 product over channels
-    (``_up2_w8a8``): (N*H*W, C) @ (C, 4D) laid out (c, a, b, d), then the
-    subpixel rearrange."""
+    (:func:`up_conv_s8`)."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__((cin, 4 * cout), cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._dequant(quant_act(x, self.act_scale))
+        return up_conv_s8(quant_act(x, self.act_scale), self.weight,
+                          self.scale, self.bias)
 
     def forward_q(self, x_q: torch.Tensor, out_scale: torch.Tensor
                   ) -> torch.Tensor:
         """int8 in (quantized with ``act_scale``), int8 out, quantized
         with ``out_scale`` (the next conv's ``act_scale``)."""
-        return quant_act(self._dequant(x_q), out_scale)
-
-    def _dequant(self, x_q: torch.Tensor) -> torch.Tensor:
-        n, h, w, c = x_q.shape
-        d = self.bias.shape[0]
-        acc = int8_matmul(x_q.reshape(-1, c), self.weight)
-        acc = acc.reshape(n, h, w, 2, 2, d).permute(0, 1, 3, 2, 4, 5)
-        return dequant(acc.reshape(n, 2 * h, 2 * w, d), self.scale,
-                       self.bias, relu=False)
+        return quant_act(up_conv_s8(x_q, self.weight, self.scale, self.bias),
+                         out_scale)
 
 
 class W8A8Conv1x1(_Site):
-    """1x1 conv (the head) as an int8 product, no ReLU."""
+    """1x1 conv (the head) as an int8 product, no ReLU
+    (:func:`conv1x1_s8`)."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__((cin, cout), cout)
@@ -336,10 +362,7 @@ class W8A8Conv1x1(_Site):
 
     def forward_q(self, x_q: torch.Tensor) -> torch.Tensor:
         """int8 in (quantized with ``act_scale``), f32 out."""
-        c, d = self.weight.shape
-        acc = int8_matmul(x_q.reshape(-1, c), self.weight)
-        return dequant(acc.reshape(*x_q.shape[:-1], d), self.scale,
-                       self.bias, relu=False)
+        return conv1x1_s8(x_q, self.weight, self.scale, self.bias)
 
 
 class _Double(nn.Module):
@@ -385,7 +408,9 @@ class W8A8UNet(nn.Module):
         """Activations in int8 between the sites: each conv's output is
         quantized, in K7's epilogue, with the scale of the site that reads
         it; an encoder stage's last conv writes two tensors, one pooled for
-        the next stage and the skip for its decoder's first conv."""
+        the next stage and the skip for its decoder's first conv.  Row
+        bands (``parallel.spatial.Bands``) run it as it is: every site is a
+        function that takes part in ``torch.overrides``."""
         x = x.float()
         if self.cfg.stem > 1:
             x = space_to_depth(x, self.cfg.stem)
