@@ -314,6 +314,18 @@ Phases, each of which fails the run (non-zero exit) on error:
    gradients within 1e-4 of each tensor's largest in float32 and within
    the bf16 gradient bar (``RTOL``) in bf16; launches per band the
    forward, the remat recompute and 17 data gradients.
+26. The JAX side's user-facing scripts, ported (``reports``), counters set
+   to 0 just before each: ``benchmarks.run_all.report`` at 300 slices (the
+   five BASELINE configs: every key of the JAX script's report, every
+   number finite and > 0, the card's name, slim4; K1, K2 and K3 launched),
+   ``benchmarks.eval_shift`` at 24 slices of each of the four off-family
+   kinds (twin parity >= 0.999 in each; the student's IoU and HD95
+   logged), ``benchmarks.eval_real`` on the 13 variants of the real MR
+   slice (its own checks, batched artifacts byte-equal to the serial ones,
+   the mosaic cleaned empty, twin parity >= 0.998 per variant), and the
+   three examples (``end_to_end`` with its 150 float32 training steps in
+   K8, ``service_client``, ``cascade_tiers``) into a temporary directory:
+   each returns 0 and writes its artifacts.
 
 The line before the last is the ``{"kernels": [...]}`` record, each conv
 kernel's entry with its data-gradient launches (``dgrad_launches``); the
@@ -4808,6 +4820,150 @@ def spatial_phase(torch, np, dev, card):
     return total, dgrad_total
 
 
+# Phase 26: the JAX side's user-facing scripts, ported: the BASELINE report
+# (run_all), the shift and real-anatomy evaluations and the three demos.
+REPORT_SLICES = 300
+SHIFT_N = 24
+SHIFT_PARITY = 0.999
+REAL_PARITY = 0.998
+#: end_to_end's training steps (its default).
+EXAMPLE_STEPS = 150
+#: The keys of the JAX script's report (``benchmarks/run_all.py``), which
+#: ``tests/test_torch_port_run_all.py`` reads from its source.
+RUN_ALL_KEYS = frozenset(
+    ["device", "checkpoint", "c1_p50_slice_to_json_ms",
+     "c2_batch32_device_slices_per_sec", "c2_serving_batch128_slices_per_sec",
+     "c2_per_class_contour_ms_per_slice_host", "c2_total_contours",
+     "c2_all_device_slices_per_sec", "c2_all_device_ms_per_batch",
+     "c3_1024_tile_sliding_window_ms", "c3_equivalent_512_slices_per_sec",
+     "c3_batched8_ms", "c3_batched_equivalent_512_slices_per_sec",
+     "c4_study_slices", "c4_study_wall_s_full",
+     "c5_tta8_ensemble_ms_per_slice", "c5_tta8_batched16_ms_per_slice",
+     "c5_tta8_weightspace16_ms_per_slice"]
+    + [f"c4_study_slices_per_sec_{t}"
+       for t in ("e2e", "json", "mask_json", "full")])
+
+
+def check_run_all(rep, kind, dev):
+    """The report holds every key of JAX's, every number finite and > 0,
+    an integer contour count, the card's name and slim4."""
+    import math
+
+    numbers = {k: v for k, v in rep.items()
+               if k not in ("device", "checkpoint")}
+    bad = [k for k, v in numbers.items()
+           if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0)]
+    want_dev = kind if dev.type == "cuda" else str(dev)
+    if set(rep) != RUN_ALL_KEYS or bad or rep["device"] != want_dev \
+            or rep["checkpoint"] != "slim4" \
+            or not isinstance(rep["c2_total_contours"], int):
+        raise AssertionError(
+            f"run_all: keys {sorted(set(rep) ^ RUN_ALL_KEYS)} differ, "
+            f"not finite and > 0: {bad}, device {rep['device']!r}, "
+            f"checkpoint {rep['checkpoint']!r}")
+
+
+def run_example(module, tmp, dev, *args) -> str:
+    """``module.main(["--out", DIR, "--device", dev, *args])`` must return
+    0; returns DIR."""
+    out = os.path.join(tmp, module.__name__.rsplit(".", 1)[1])
+    if module.main(["--out", out, "--device", str(dev), *args]) != 0:
+        raise AssertionError(f"{module.__name__} did not return 0")
+    return out
+
+
+def check_names(where, got, want):
+    missing = sorted(set(want) - set(got))
+    if missing:
+        raise AssertionError(f"{where}: missing {missing}")
+
+
+def reports_phase(torch, np, dev, card):
+    """Phase 26: ``run_all.report`` at ``REPORT_SLICES``, ``eval_shift`` at
+    ``SHIFT_N`` slices a kind, ``eval_real`` and the three examples on the
+    card, the counters set to 0 just before each; returns their launches
+    and data-gradient launches."""
+    from unetseg_tpu_torch.benchmarks import eval_real, eval_shift, run_all
+    from unetseg_tpu_torch.examples import (cascade_tiers, end_to_end,
+                                            service_client)
+    from unetseg_tpu_torch.ops import conv
+
+    kind = card["card"]
+    total, dgrad_total = {}, {}
+
+    def counted(what, fn, want):
+        """``fn()`` with the counters set to 0 just before it; each kernel
+        in ``want`` must have launched."""
+        reset_all_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        seconds = time.perf_counter() - t0
+        got, dgrad = all_launches(), dict(conv.DGRAD_LAUNCHES)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        for k, v in dgrad.items():
+            dgrad_total[k] = dgrad_total.get(k, 0) + v
+        idle = [k for k in want if not got.get(k)]
+        if idle:
+            raise AssertionError(f"{what}: {idle} never launched: {got}")
+        return out, {"seconds": seconds, "launches": got,
+                     "dgrad_launches": dgrad}
+
+    k12 = ("conv3x3_bias_act", "conv3x3_bias_act_small_c")
+    rep, meta = counted("run_all", lambda: run_all.report(
+        REPORT_SLICES, str(dev)), k12 + ("cc_label",))
+    log({"phase": "reports", "report": "run_all", **meta, "result": rep,
+         **card})
+    check_run_all(rep, kind, dev)
+
+    shift, meta = counted("eval_shift", lambda: eval_shift.evaluate(
+        SHIFT_N, device=str(dev), log=lambda *a: None), k12)
+    log({"phase": "reports", "report": "eval_shift", "n_per_kind": SHIFT_N,
+         **meta, "result": shift, **card})
+    low = {k: shift[k]["pipeline_twin_parity"] for k in eval_shift.KINDS
+           if shift[k]["pipeline_twin_parity"] < SHIFT_PARITY}
+    if low:
+        raise AssertionError(f"eval_shift: twin parity below "
+                             f"{SHIFT_PARITY}: {low}")
+
+    real, meta = counted("eval_real", lambda: eval_real.evaluate(
+        str(dev), log=lambda s: None), k12)
+    log({"phase": "reports", "report": "eval_real", **meta, **real, **card})
+    summary = real["summary"]
+    low = {r["variant"]: r["twin_parity"] for r in real["rows"]
+           if r["twin_parity"] < REAL_PARITY}
+    if low or len(real["rows"]) != 13 or not summary["batched_byte_equal"] \
+            or not summary["mosaic_multiorgan_cleanup_empty"]:
+        raise AssertionError(f"eval_real: twin parity below {REAL_PARITY}: "
+                             f"{low}; summary {summary}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, meta = counted("end_to_end", lambda: run_example(
+            end_to_end, tmp, dev, "--steps", str(EXAMPLE_STEPS)),
+            ("conv3x3_bias_act_f32",))
+        log({"phase": "reports", "report": "end_to_end", **meta, **card})
+        check_names("end_to_end", os.listdir(os.path.join(out, "results")),
+                    [f"case_001{a}" for a in ARTIFACTS[:3]])
+        check_names("end_to_end", os.listdir(os.path.join(out, "engine")),
+                    ["model.ckpt"])
+        out, meta = counted("service_client", lambda: run_example(
+            service_client, tmp, dev), ("conv3x3_bias_act_f32",))
+        log({"phase": "reports", "report": "service_client", **meta, **card})
+        check_names("service_client", os.listdir(os.path.join(out, "single")),
+                    [f"slice0{a}" for a in ARTIFACTS[:3]])
+        check_names("service_client", os.listdir(os.path.join(out, "batch")),
+                    [f"slice{i}{a}" for i in range(4) for a in ARTIFACTS[:3]])
+        out, meta = counted("cascade_tiers", lambda: run_example(
+            cascade_tiers, tmp, dev), ("conv3x3_bias_act_f32",))
+        log({"phase": "reports", "report": "cascade_tiers", **meta, **card})
+        arts = os.listdir(os.path.join(out, "artifacts"))
+        check_names("cascade_tiers", arts,
+                    [f"s{i}_64_64_original_sizes.json" for i in range(4)])
+        if not all(a.endswith(".json") for a in arts):
+            raise AssertionError(f"cascade_tiers: the json tier wrote {arts}")
+    return total, dgrad_total
+
+
 def main() -> int:
     import torch
 
@@ -5236,6 +5392,15 @@ def main() -> int:
     t0 = time.perf_counter()
     launches, dgrad = spatial_phase(torch, np, dev, card)
     log({"phase": "spatial_phase_seconds",
+         "seconds": time.perf_counter() - t0})
+    for k, v in launches.items():
+        f32_launches[k] = f32_launches.get(k, 0) + v
+    for k, v in dgrad.items():
+        dgrad_launches[k] = dgrad_launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches, dgrad = reports_phase(torch, np, dev, card)
+    log({"phase": "reports_phase_seconds",
          "seconds": time.perf_counter() - t0})
     for k, v in launches.items():
         f32_launches[k] = f32_launches.get(k, 0) + v

@@ -42,7 +42,14 @@ NEW_MODULES = ("unetseg_tpu_torch.ops.dec1", "unetseg_tpu_torch.ops.halo_copy",
                "unetseg_tpu_torch.train",
                "unetseg_tpu_torch.benchmarks.train_flagship",
                "unetseg_tpu_torch.benchmarks.k7_bench",
-               "unetseg_tpu_torch.parallel.spatial")
+               "unetseg_tpu_torch.parallel.spatial",
+               "unetseg_tpu_torch.benchmarks.run_all",
+               "unetseg_tpu_torch.benchmarks.eval_shift",
+               "unetseg_tpu_torch.benchmarks.eval_real",
+               "unetseg_tpu_torch.examples",
+               "unetseg_tpu_torch.examples.end_to_end",
+               "unetseg_tpu_torch.examples.service_client",
+               "unetseg_tpu_torch.examples.cascade_tiers")
 
 
 def test_port_imports_no_jax():

@@ -76,6 +76,19 @@ def ensure_jax_native():
 ensure_jax_native()
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One torch CPU thread for a module's tests: the xdist workers share
+    the machine's cores, and at small shapes a thread pool per worker
+    costs more in handoffs than it computes."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def jax_native():
     """The JAX package's ``io.native`` with its library loaded."""

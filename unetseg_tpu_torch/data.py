@@ -1,6 +1,6 @@
 """Synthetic CT-like slices, the real MR sample and model-ready batches, a
-copy of ``unetseg_tpu/data.py`` (numpy only; matplotlib, where present,
-only to find its bundled sample).
+copy of ``unetseg_tpu/data.py`` (numpy only; the MR sample is a package
+file, matplotlib's bundled one the fallback).
 
 A noisy background with a bright soft-edged ellipse "organ" (class 2) and a
 dimmer distractor blob (class 1), mirroring the reference's class semantics
@@ -10,9 +10,16 @@ same seed gives the same slices as the JAX package.
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
+
+#: matplotlib's sample MR slice ``s1045.ima.gz``, copied into the package
+#: (matplotlib's licence; see the README), so that a host without
+#: matplotlib still has it.
+SAMPLE_SLICE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "sample_data", "s1045.ima.gz")
 
 
 def synth_slice(rng: np.random.Generator, size: int = 512,
@@ -146,25 +153,29 @@ def real_mri_slice():
     sample ``s1045.ima.gz``, a 256x256 uint16 MR head slice (an actual scan
     shipped with matplotlib for its MRI demos since the mpl 0.x era).
 
-    Returns a (256, 256) uint16 array, or ``None`` when matplotlib (or the
-    sample file) is absent.  One slice cannot validate accuracy claims, but
+    The package carries a copy of the file (:data:`SAMPLE_SLICE`, under
+    matplotlib's licence), read first; matplotlib's own file only when the
+    copy is missing.  Returns a (256, 256) uint16 array, or ``None`` when
+    neither file is there.  One slice cannot validate accuracy claims, but
     it is genuine anatomy in exactly the reference's input format
     (headerless little-endian u16 — the reference's src/preprocess.cpp:76),
     so it exercises every pipeline stage on a real intensity distribution
     instead of synthetic phantoms.
     """
     import gzip
-    import os
 
-    try:
-        import matplotlib
-    except Exception:  # matplotlib is optional
-        return None
-    path = os.path.join(matplotlib.get_data_path(), "sample_data",
-                        "s1045.ima.gz")
-    if not os.path.exists(path):  # pragma: no cover
-        return None
-    buf = gzip.open(path, "rb").read()
+    path = SAMPLE_SLICE
+    if not os.path.exists(path):
+        try:
+            import matplotlib
+        except ImportError:  # matplotlib is optional
+            return None
+        path = os.path.join(matplotlib.get_data_path(), "sample_data",
+                            "s1045.ima.gz")
+        if not os.path.exists(path):  # pragma: no cover
+            return None
+    with gzip.open(path, "rb") as f:
+        buf = f.read()
     if len(buf) != 256 * 256 * 2:  # pragma: no cover
         return None
     return np.frombuffer(buf, np.uint16).reshape(256, 256).copy()
