@@ -144,10 +144,11 @@ Phases, each of which fails the run (non-zero exit) on error:
    resident runs' JSONs too.  The device preprocess (float32) may part from
    the host C++ one (float64) by one gray level at a few pixels: where that
    run's masks differ, its u8 must, and its masks must be the host cleanup
-   of the argmax of its own u8.  Slices/s, wall, inference and staging
-   seconds, the host stages (``pipeline.STAGES``: load, h2d, d2h, cleanup,
-   emit) and the device's idle share (torch.profiler) of each run and of
-   process_batch.  Their launches are added to the kernels line.
+   of the argmax of its own u8.  Slices/s, wall and staging seconds, the
+   host stages (``pipeline.STAGES``: load, read, h2d, wait_load, dispatch,
+   d2h, cleanup, handoff, emit) and the device's idle share
+   (torch.profiler) of each run and of process_batch.  Their launches are
+   added to the kernels line.
 16. The bench (``bench``): ``python -m unetseg_tpu_torch.bench`` in a
    subprocess, its JSON line logged as it is; fg_iou_min and
    parity_polygon_iou (against the numpy/scipy reference twin) must reach
@@ -1779,8 +1780,7 @@ def study_model(torch, np, name, ckpt, paths, batch, tmp, dev, card):
         prof = profile_pipeline(torch, run, iters=1)
         log({"phase": "study", "model": name, "mode": mode, "slices": n,
              "batch": batch, "slices_per_sec": res.slices_per_sec,
-             "wall_s": res.wall_s, "inference_s": res.inference_s,
-             "stage_s": res.stage_s,
+             "wall_s": res.wall_s, "stage_s": res.stage_s,
              "host_stages_s": {k: v["total_s"] for k, v in stages.items()},
              "host_stage_calls": {k: v["calls"] for k, v in stages.items()},
              "forwards": forwards, "launches": launches,

@@ -12,6 +12,7 @@ agree everywhere (all of them with these seeds).
 
 import collections
 import dataclasses
+import json
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -32,7 +33,7 @@ from unetseg_tpu_torch import checkpoint
 from unetseg_tpu_torch.data import synth_slice
 from unetseg_tpu_torch.io import native, raw as raw_io
 from unetseg_tpu_torch.parallel import pipeline
-from unetseg_tpu_torch.utils.profiling import StageTimer, device_trace
+from unetseg_tpu_torch.utils.profiling import StageTimer
 
 SMALL = JaxModelConfig(base_channels=8, depth=2, image_size=64,
                        compute_dtype="float32")
@@ -149,7 +150,6 @@ def test_device_resident_matches_jax(models, raws, tmp_path, jax_native,
         params, cfg, raws, W, H, out_dir=str(tmp_path / "port"),
         device="cpu", **kw)
     assert got.stage_s > 0 and got.slices_per_sec > 0
-    assert got.inference_s == got.wall_s
     agree = _argmax_agreement(jparams, params, cfg, _u8(raws, True))
     assert agree.all()
     np.testing.assert_array_equal(got.masks, want.masks)
@@ -267,8 +267,20 @@ def test_study_engine_is_keyed_by_params(models):
     assert pipeline.study_engine(params, cfg, "cpu", True) is not eng
 
 
-def test_stage_timer_and_trace(tmp_path):
-    t = StageTimer()
+def _spans(prof, path):
+    """(name, thread id, start, end) of the ``study.*`` spans in the
+    profiler's exported Chrome trace."""
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], e["tid"], e["ts"], e["ts"] + e["dur"])
+            for e in events if e.get("ph") == "X"
+            and e.get("cat") == "user_annotation"
+            and e["name"].startswith("study.")]
+
+
+def test_stage_timer_and_trace(tmp_path, monkeypatch):
+    t = StageTimer("study.")
     with t.stage("a"):
         pass
     with t.stage("a"):
@@ -277,17 +289,69 @@ def test_stage_timer_and_trace(tmp_path):
         pass
     s = t.summary()
     assert s["a"]["calls"] == 2 and s["b"]["calls"] == 1
-    with device_trace(None):  # no-op path
-        pass
     t.reset()
     assert t.summary() == {}
 
-    trace_dir = tmp_path / "trace"
-    with device_trace(str(trace_dir)):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    traces = os.listdir(trace_dir)
-    assert len(traces) == 1 and traces[0].endswith(".json")
-    assert "aten::mm" in (trace_dir / traces[0]).read_text()
-    with pytest.raises(KeyError, match="body"):
-        with device_trace(str(tmp_path / "trace2")):
-            raise KeyError("body")
+    # under the profiler: one span a stage, the inner one nested in the
+    # outer on the same thread; the totals are kept as without it
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with t.stage("a"):
+            with t.stage("b"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+    spans = {name: (tid, a, b)
+             for name, tid, a, b in _spans(prof, tmp_path / "trace.json")}
+    assert set(spans) == {"study.a", "study.b"}
+    (ta, a0, a1), (tb, b0, b1) = spans["study.a"], spans["study.b"]
+    assert ta == tb and a0 <= b0 <= b1 <= a1
+    parents = {e.name: e.cpu_parent for e in prof.events()}
+    assert parents["study.b"].name == "study.a"
+    assert parents["aten::matmul"].name == "study.b"
+    s = t.summary()
+    assert s["a"]["calls"] == s["b"]["calls"] == 1
+
+    # profiler off: no span is entered
+    def no_span(*args, **kwargs):
+        raise AssertionError("record_function entered with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", no_span)
+    with t.stage("a"):
+        pass
+    assert t.summary()["a"]["calls"] == 2
+
+
+def test_run_study_spans(models, raws, tmp_path):
+    """A study under a profiler of every thread: the study's own thread
+    runs its stages one after another, the loaders theirs on other
+    threads, and the timer counts one wait and one dispatch a batch."""
+    _, params, cfg = models
+    n_batches = -(-N // BATCH)
+    pipeline.run_study(params, cfg, raws, W, H, batch_size=BATCH,
+                       device="cpu")  # the engine's warm-up
+    pipeline.STAGES.reset()
+    all_threads = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            experimental_config=all_threads) as prof:
+        pipeline.run_study(params, cfg, raws, W, H, batch_size=BATCH,
+                           emit=lambda k, path, mask: None, device="cpu")
+    spans = _spans(prof, tmp_path / "trace.json")
+    main = ("study.wait_load", "study.dispatch", "study.d2h",
+            "study.cleanup", "study.handoff")
+    main_tids = {tid for name, tid, _, _ in spans if name in main}
+    assert len(main_tids) == 1
+    on_main = sorted((a, b, name) for name, tid, a, b in spans
+                     if tid in main_tids)
+    assert {name for _, _, name in on_main} == set(main)
+    for (_, end, _), (start, _, _) in zip(on_main, on_main[1:]):
+        assert end <= start  # no two of the thread's stages overlap
+    loader_tids = {tid for name, tid, _, _ in spans
+                   if name in ("study.load", "study.read")}
+    assert loader_tids and not loader_tids & main_tids
+    counts = collections.Counter(name for name, _, _, _ in spans)
+    for name in main[:4] + ("study.load", "study.read", "study.h2d"):
+        assert counts[name] == n_batches, name
+    stages = pipeline.STAGES.summary()
+    assert stages["wait_load"]["calls"] == stages["dispatch"]["calls"] \
+        == stages["d2h"]["calls"] == n_batches

@@ -21,7 +21,8 @@ stage); the engines are cached by the params object they were built from
 one checkpoint reuse one model and its warm-up, and a study of another
 checkpoint never meets it.  Each host stage's wall time is recorded into
 ``STAGES`` (a ``StageTimer``; the loader and emitter stages are summed over
-their threads).
+their threads); under a ``torch.profiler`` each stage is also a span
+``study.<stage>`` on the thread that ran it.
 """
 
 from __future__ import annotations
@@ -42,13 +43,18 @@ from unetseg_tpu_torch.io import native, raw as raw_io
 from unetseg_tpu_torch.ops import preprocess
 from unetseg_tpu_torch.utils.profiling import StageTimer
 
-#: Host stages of the last studies: "load" (read, host preprocess, tail
-#: padding) and "h2d" (pinning and enqueueing the copy to the device), on
-#: the loader threads (in the device-resident mode: its untimed staging);
+#: Host stages of the last studies.  On the loader threads (in the
+#: device-resident mode: its untimed staging): "load" (read, host
+#: preprocess, tail padding), within it "read" (mapping the RAW files and,
+#: with the device resample, stacking them: the files' bytes), and
+#: "h2d" (pinning and enqueueing the copy to the device).  On the study's
+#: own thread, one after another: "wait_load" (waiting for the next loaded
+#: batch), "dispatch" (enqueueing the device stage and the copy back),
 #: "d2h" (waiting for a batch's masks on the host: the device's remaining
 #: work and the copy), "cleanup" (host C++ cleanup, or the 1-bit unpack),
-#: "emit" (artifacts, on the emitter threads).  Callers reset it.
-STAGES = StageTimer()
+#: "handoff" (keeping the masks, handing them to the emitter threads).  On
+#: the emitter threads: "emit" (artifacts).  Callers reset it.
+STAGES = StageTimer("study.")
 
 _TIERS = {"json": native.TIER_JSON, "mask_json": native.TIER_MASK_JSON,
           "full": native.TIER_FULL}
@@ -61,7 +67,6 @@ class StudyResult:
     n_slices: int
     wall_s: float
     slices_per_sec: float
-    inference_s: float
     masks: Optional[np.ndarray] = None
     stage_s: float = 0.0  # device-resident mode: untimed on-device staging
 
@@ -126,12 +131,16 @@ def _load_batch(paths: Sequence[str], width: int, height: int,
     also returns the host array (the emitter needs the normalized u8):
     -> (host, device)."""
     with STAGES.stage("load"):
-        raws = [np.asarray(raw_io.read_raw(p, width, height)) for p in paths]
+        # read_raw maps the files; their pages come in at the first touch,
+        # which "read" holds only where it is the stack of the u16 slices
+        with STAGES.stage("read"):
+            raws = [np.asarray(raw_io.read_raw(p, width, height))
+                    for p in paths]
+            if to_u8_size is None:
+                out = np.stack(raws)
         if to_u8_size is not None:
             out = np.stack([native.preprocess_u8(r, to_u8_size)
                             for r in raws])
-        else:
-            out = np.stack(raws)
         if pad_to is not None and out.shape[0] < pad_to:
             pad = np.repeat(out[-1:], pad_to - out.shape[0], axis=0)
             out = np.concatenate([out, pad], axis=0)
@@ -301,7 +310,6 @@ def run_study(
     eng.compile(batch_size)
 
     t0 = time.perf_counter()
-    inference_s = 0.0
 
     def load(idxs):
         return _load_batch([slice_paths[k] for k in idxs], width, height,
@@ -330,46 +338,49 @@ def run_study(
             with STAGES.stage("d2h"):
                 packed_or_full = wait()[: len(idxs)]  # drop the tail's pad
             if per_class:
-                emit_futures.append(emitters.submit(
-                    _emit_per_class, packed_or_full,
-                    [slice_paths[k] for k in idxs]))
+                with STAGES.stage("handoff"):
+                    emit_futures.append(emitters.submit(
+                        _emit_per_class, packed_or_full,
+                        [slice_paths[k] for k in idxs]))
             with STAGES.stage("cleanup"):
                 if pack:
                     masks = native.postprocess_packed_batch(packed_or_full,
                                                             size)
                 else:
                     masks = native.postprocess_batch(packed_or_full)
-            if keep_masks:
-                masks_out[idxs] = masks
-            if tier is not None:
-                emit_futures.append(emitters.submit(
-                    _emit, u8_host, masks, [slice_paths[k] for k in idxs],
-                    out_dir, width, height, tier))
-            if emit is not None:
-                for j, k in enumerate(idxs):
-                    emit_futures.append(
-                        emitters.submit(emit, k, slice_paths[k], masks[j]))
+            with STAGES.stage("handoff"):
+                if keep_masks:
+                    masks_out[idxs] = masks
+                if tier is not None:
+                    emit_futures.append(emitters.submit(
+                        _emit, u8_host, masks, [slice_paths[k] for k in idxs],
+                        out_dir, width, height, tier))
+                if emit is not None:
+                    for j, k in enumerate(idxs):
+                        emit_futures.append(
+                            emitters.submit(emit, k, slice_paths[k], masks[j]))
 
-        for idxs, raws in prefetch_map(loaders, load, batches,
-                                       loader_threads + 1):
+        loaded = prefetch_map(loaders, load, batches, loader_threads + 1)
+        for _ in batches:
+            with STAGES.stage("wait_load"):
+                idxs, raws = next(loaded)
             # raws are on the device already (a loader-thread copy); in
             # artifact mode the loader also kept the host u8 for the emitter
             host_u8 = None
             if tier is not None:
                 host_u8, raws = raws
-            t_inf = time.perf_counter()
-            masks_dev = device_stage(raws)
-            pending.append((eng.to_host(masks_dev), host_u8, idxs))
+            with STAGES.stage("dispatch"):
+                pending.append((eng.to_host(device_stage(raws)), host_u8,
+                                idxs))
             if len(pending) > 1:  # overlap: drain k while the device runs k+1
                 drain(pending.pop(0))
-            inference_s += time.perf_counter() - t_inf
         while pending:
             drain(pending.pop(0))
         _check_emitted(emit_futures)
 
     wall = time.perf_counter() - t0
     return StudyResult(n_slices=n, wall_s=wall, slices_per_sec=n / wall,
-                       inference_s=inference_s, masks=masks_out)
+                       masks=masks_out)
 
 
 def run_study_device_resident(
@@ -438,7 +449,8 @@ def run_study_device_resident(
 
     # ---- timed: enqueue every batch, then drain in order -------------------
     t0 = time.perf_counter()
-    pending = [eng.to_host(stage(d)) for d in dev_u8]
+    with STAGES.stage("dispatch"):
+        pending = [eng.to_host(stage(d)) for d in dev_u8]
     emit_futures = []
     with ThreadPoolExecutor(max_workers=emitter_threads) as emitters:
         for bi, (idxs, wait) in enumerate(zip(batches, pending)):
@@ -464,7 +476,6 @@ def run_study_device_resident(
     wall = time.perf_counter() - t0
 
     return StudyResult(n_slices=n, wall_s=wall, slices_per_sec=n / wall,
-                       inference_s=wall,  # the device work is all timed
                        masks=masks_out, stage_s=stage_s)
 
 

@@ -1,41 +1,60 @@
-"""Stage timers and an optional device trace: the port of
-``unetseg_tpu.utils.profiling``.
+"""Stage timers: the port of ``unetseg_tpu.utils.profiling``.
 
 ``StageTimer`` accumulates wall time per named stage (the study runner
 records its host stages into ``parallel.pipeline.STAGES``); unlike the JAX
 copy it takes a lock, since loader and emitter threads record into one
-timer.  ``device_trace`` writes a ``torch.profiler`` trace under a
-directory, viewable in TensorBoard or Perfetto.
+timer.  While a ``torch.profiler`` records, each stage is also a span
+(``record_function``) in the profiler's trace, on the thread that ran it
+and on the clock of the device's kernels; nested stages nest there.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
 import threading
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+
+def _recording() -> bool:
+    """Whether a ``torch.profiler`` is recording.  The module flag is set
+    for every thread (a profiler of all threads leaves the C++ check false
+    even on its own); the C++ check covers a profiler enabled without it."""
+    return (getattr(_autograd_profiler, "_is_profiler_enabled", False)
+            or torch.autograd._profiler_enabled())
 
 
 class StageTimer:
     """Accumulating per-stage wall-clock timer.
 
-    >>> t = StageTimer()
+    >>> t = StageTimer("study.")
     >>> with t.stage("preprocess"): ...
     >>> t.summary()  # {"preprocess": {"calls": 1, "total_s": ...}}
+
+    Under a profiler the stage is also the span ``study.preprocess``.
     """
 
-    def __init__(self) -> None:
+    def __init__(self, span_prefix: str) -> None:
+        self.span_prefix = span_prefix
         self._acc: Dict[str, list] = {}
         self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
+        span = None
+        if _recording():
+            span = torch.profiler.record_function(self.span_prefix + name)
+            span.__enter__()
         t0 = time.perf_counter()
         try:
             yield
         finally:
             dt = time.perf_counter() - t0
+            if span is not None:
+                span.__exit__(None, None, None)
             with self._lock:
                 entry = self._acc.setdefault(name, [0, 0.0])
                 entry[0] += 1
@@ -51,40 +70,3 @@ class StageTimer:
     def reset(self) -> None:
         with self._lock:
             self._acc.clear()
-
-
-@contextlib.contextmanager
-def device_trace(log_dir: Optional[str]) -> Iterator[None]:
-    """Optional ``torch.profiler`` trace of the body (host operators, and
-    the device's kernels when CUDA is available), written as a Chrome trace
-    JSON under ``log_dir``.  A no-op when ``log_dir`` is None or empty.
-
-    Only the profiler's own start and stop failures are swallowed:
-    profiling never breaks the pipeline, and the body's exceptions
-    propagate."""
-    if not log_dir:
-        yield
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    prof = None
-    try:
-        prof = profile(activities=activities)
-        prof.__enter__()
-    except Exception:
-        prof = None
-    try:
-        yield
-    finally:
-        if prof is not None:
-            try:
-                prof.__exit__(None, None, None)
-                os.makedirs(log_dir, exist_ok=True)
-                prof.export_chrome_trace(os.path.join(
-                    log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
-            except Exception:
-                pass
