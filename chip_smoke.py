@@ -327,6 +327,20 @@ Phases, each of which fails the run (non-zero exit) on error:
    three examples (``end_to_end`` with its 150 float32 training steps in
    K8, ``service_client``, ``cascade_tiers``) into a temporary directory:
    each returns 0 and writes its artifacts.
+27. The engine's forward graphs (``graphs``): for the flagship (K6), slim4
+   (stem 4, unfused), UNet++, Attention U-Net, the w8a8 slim4 (K7) and
+   slim4 in float32 (K8), at batch 32 and 1 and from both callers' input
+   forms (the u8 batch; the model input the study's device preprocess
+   gives), the counters set to 0 just before each forward: the masks a
+   replay returns are ``torch.equal`` to the eager forward's; two results
+   held across replays on different slices keep their own values; each
+   captured graph holds, kernel by kernel (``conv3x3_wgmma``,
+   ``conv3x3_tf32x3``, ``conv3x3_s8_wgmma``, ``dec1_wgmma``), as many
+   kernel nodes as the eager forward's wrappers counted launches (the
+   graph's DOT dump), and a replay adds that many to the counters;
+   ``graph_replays`` counts one a replay; an unwarmed
+   batch size and a dp engine over two positions run eagerly.  Logged:
+   the host ms of one ``_pipeline`` call, eager and replayed.
 
 The line before the last is the ``{"kernels": [...]}`` record, each conv
 kernel's entry with its data-gradient launches (``dgrad_launches``); the
@@ -336,6 +350,7 @@ last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -4964,6 +4979,241 @@ def reports_phase(torch, np, dev, card):
     return total, dgrad_total
 
 
+# Phase 27: the batches each family's forward graphs are checked at, the
+# batch no graph is captured for, and the host-time samples a call.
+GRAPH_BATCHES = (32, 1)
+GRAPH_UNWARMED = 2
+GRAPH_HOST_CALLS = 7
+#: The kernel each launch counter's entry runs: phase 27 counts the nodes
+#: of each in a captured graph.
+KERNEL_OF = {"conv3x3_bias_act": "conv3x3_wgmma_kernel",
+             "conv3x3_bias_act_small_c": "conv3x3_wgmma_kernel",
+             "conv3x3_bias_act_f32": "conv3x3_tf32x3_kernel",
+             "dec1_fused": "dec1_wgmma_kernel",
+             "conv3x3_s8": "conv3x3_s8_wgmma_kernel"}
+
+
+def graph_launches() -> dict:
+    from unetseg_tpu_torch.ops import conv_s8
+
+    return {**all_launches(), **conv_s8.LAUNCHES}
+
+
+def by_kernel(launches: dict) -> dict:
+    """The launch counters' counts summed by the kernel each entry runs."""
+    out = dict.fromkeys(KERNEL_OF.values(), 0)
+    for k, n in launches.items():
+        if k in KERNEL_OF:
+            out[KERNEL_OF[k]] += n
+    return out
+
+
+@contextlib.contextmanager
+def kept_graphs(torch):
+    """CUDA graphs made inside the block keep their nodes after the
+    capture (``keep_graph``; instantiated at the first replay), for
+    ``debug_dump``: ``enable_debug_mode`` alone kept none."""
+    cls = torch.cuda.CUDAGraph
+
+    def kept():
+        return cls(keep_graph=True)
+
+    torch.cuda.CUDAGraph = kept
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = cls
+
+
+def graph_kernels(graph, tmp: str):
+    """The nodes of each kernel of ``KERNEL_OF`` in a graph captured under
+    :func:`kept_graphs` (its DOT dump, ``cudaGraphDebugDotPrint``), and its
+    nodes in all."""
+    path = os.path.join(tmp, "graph.dot")
+    graph.debug_dump(path)
+    with open(path) as f:
+        text = f.read()
+    # a node statement: a quoted id, then its attributes (an edge has "->")
+    starts = list(re.finditer(r'(?m)^\s*"[^"]+"\s*\[', text))
+    counts = dict.fromkeys(KERNEL_OF.values(), 0)
+    for m, nxt in zip(starts, starts[1:] + [None]):
+        body = text[m.end():nxt.start() if nxt else len(text)]
+        for name in counts:
+            counts[name] += name in body
+    return counts, len(starts)
+
+
+def counted_forward(torch, eng, *args):
+    """``eng._masks_on(0, *args)`` with the counters set to 0 just before
+    it: (masks, launches counted, replays it added)."""
+    from unetseg_tpu_torch.ops import conv_s8
+
+    reset_all_launches()
+    conv_s8.reset_launches()
+    replays = eng.graph_replays
+    masks = eng._masks_on(0, *args)
+    torch.cuda.synchronize()
+    return masks, graph_launches(), eng.graph_replays - replays
+
+
+def host_ms(torch, fn, calls: int = GRAPH_HOST_CALLS) -> float:
+    """Median host ms of ``fn()``'s enqueueing, the card idle before each
+    call."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return sorted(times)[len(times) // 2]
+
+
+def graph_family(torch, np, name, params, cfg, inputs, dev, card) -> dict:
+    """Phase 27 for one family: eager forwards first (no size warmed), then
+    ``compile`` at each of ``GRAPH_BATCHES``, each graph's kernel nodes
+    counted, and the same forwards replayed.  Returns the launches
+    counted."""
+    from unetseg_tpu_torch import engine
+
+    eng = engine.InferenceEngine(params, cfg, device=dev)
+    u8s, xs = inputs
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def forms(b, part):
+        sl = slice(part * 32, part * 32 + b)
+        return {"u8": (u8s[sl], None), "x": (u8s[sl], xs[sl])}
+
+    eager = {}
+    for b in GRAPH_BATCHES:
+        for form in ("u8", "x"):
+            for part in (0, 1):
+                masks, launches, replays = counted_forward(
+                    torch, eng, *forms(b, part)[form])
+                if replays or not any(launches.values()):
+                    raise AssertionError(f"graphs {name}: an eager forward "
+                                         f"replayed {replays}, launched "
+                                         f"{launches}")
+                add(launches)
+                eager[b, form, part] = (masks, launches)
+            if torch.equal(eager[b, form, 0][0], eager[b, form, 1][0]):
+                raise AssertionError(f"graphs {name}: the two inputs' masks "
+                                     f"are equal at batch {b}: the held-"
+                                     f"results check would be vacuous")
+    unwarmed = counted_forward(torch, eng, u8s[:GRAPH_UNWARMED])[0]
+    eager_ms = {(b, form): host_ms(torch, lambda: eng._pipeline(
+        *forms(b, 0)[form])) for b in GRAPH_BATCHES for form in ("u8", "x")}
+    t0 = time.perf_counter()
+    with kept_graphs(torch):
+        for b in GRAPH_BATCHES:
+            eng.compile(b)
+    capture_s = time.perf_counter() - t0
+    if len(eng._graphs) != len(GRAPH_BATCHES):
+        raise AssertionError(f"graphs {name}: {len(eng._graphs)} graphs "
+                             f"captured")
+    held, nodes = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for (shape, _, _), g in eng._graphs.items():
+            # the graph holds, kernel by kernel, what the eager forward's
+            # wrappers launched: the launches a replay makes
+            b = shape[0]
+            held[b], nodes[b] = graph_kernels(g.graph, tmp)
+            want = by_kernel(eager[b, "x", 0][1])
+            if held[b] != want:
+                raise AssertionError(f"graphs {name} batch {b}: the "
+                                     f"graph holds {held[b]}, the eager "
+                                     f"forward launched {want}")
+    for b in GRAPH_BATCHES:
+        for form in ("u8", "x"):
+            # two results held across replays: a, then b, then checked
+            got = [counted_forward(torch, eng, *forms(b, part)[form])
+                   for part in (0, 1)]
+            for part, (masks, launches, replays) in enumerate(got):
+                want, want_launches = eager[b, form, part]
+                add(launches)
+                if replays != 1 or launches != want_launches or \
+                        not torch.equal(masks, want):
+                    raise AssertionError(
+                        f"graphs {name} batch {b} {form} input {part}: "
+                        f"replays {replays}, launches {launches} (eager "
+                        f"{want_launches}), masks equal "
+                        f"{torch.equal(masks, want)}")
+            replay_ms = host_ms(torch, lambda: eng._pipeline(
+                *forms(b, 0)[form]))
+            log({"phase": "graphs", "model": name, "batch": b, "form": form,
+                 "bit_equal": True, "launches_per_forward": got[0][1],
+                 "graph_kernel_nodes": held[b],
+                 "graph_nodes": nodes[b],
+                 "pipeline_host_ms_eager": eager_ms[b, form],
+                 "pipeline_host_ms_replay": replay_ms, **card})
+    replays = eng.graph_replays
+    masks, launches, added = counted_forward(
+        torch, eng, u8s[:GRAPH_UNWARMED])
+    add(launches)
+    if added or eng.graph_replays != replays or \
+            not torch.equal(masks, unwarmed):
+        raise AssertionError(f"graphs {name}: the unwarmed batch "
+                             f"{GRAPH_UNWARMED} replayed or differs")
+    log({"phase": "graphs_family", "model": name, "capture_s": capture_s,
+         "forwards": eng.forwards, "graph_replays": eng.graph_replays,
+         "memory_allocated": torch.cuda.memory_allocated(dev),
+         "memory_reserved": torch.cuda.memory_reserved(dev), **card})
+    return total
+
+
+def graphs_phase(torch, np, dev, card) -> dict:
+    """Phase 27 (module docstring).  Returns the launches counted."""
+    from unetseg_tpu_torch import checkpoint, engine
+    from unetseg_tpu_torch.config import ModelConfig
+    from unetseg_tpu_torch.io import native, raw as raw_io
+    from unetseg_tpu_torch.models import registry
+    from unetseg_tpu_torch.ops import preprocess
+
+    total: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        flag_ckpt, paths = flagship_checkpoint(torch, np, tmp, dev)
+        raws = torch.from_numpy(np.stack([np.asarray(raw_io.read_raw(
+            p, 768, 768)) for p in paths])).to(dev)
+        with torch.inference_mode():
+            inputs = preprocess.preprocess_batch(raws, 512)
+        del raws
+        ckpts = {"flagship": flag_ckpt, "slim4": CKPT}
+        for name in ("unetpp", "attention_unet"):
+            ckpts[name] = os.path.join(tmp, "models", f"{name}.ckpt")
+            checkpoint.create(ckpts[name], ModelConfig(arch=name), seed=0)
+            centre_head_bias(torch, checkpoint, registry, native, raw_io,
+                             preprocess, ckpts[name], paths[:4], 768, dev)
+        ckpts["w8a8_slim4"] = quantize_slim4(np, tmp, dev)[0]
+        ckpts["slim4_f32"] = f32_checkpoint(
+            torch, np, CKPT, os.path.join(tmp, "models", "slim32.ckpt"), dev)
+        for name, path in ckpts.items():
+            params, cfg = checkpoint.load(path)
+            for k, v in graph_family(torch, np, name, params, cfg, inputs,
+                                     dev, card).items():
+                total[k] = total.get(k, 0) + v
+            torch.cuda.empty_cache()
+
+        # a dp engine over two positions of the card: no graph, eager parts
+        params, cfg = checkpoint.load(flag_ckpt)
+        dp = engine.InferenceEngine(params, cfg, devices=[dev, dev])
+        dp.compile(32)
+        masks = dp._pipeline(inputs[0][:32])
+        torch.cuda.synchronize()
+        log({"phase": "graphs_dp", "model": "flagship", "batch": 32,
+             "forwards": dp.forwards, "graph_replays": dp.graph_replays,
+             "graphs": len(dp._graphs), **card})
+        if dp._graphs or dp.graph_replays or dp.forwards != 4 or \
+                masks.shape != (32, 512, 512):
+            raise AssertionError(f"graphs: the dp engine captured or "
+                                 f"replayed ({dp.forwards} forwards, "
+                                 f"{dp.graph_replays} replays)")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -5406,6 +5656,12 @@ def main() -> int:
         f32_launches[k] = f32_launches.get(k, 0) + v
     for k, v in dgrad.items():
         dgrad_launches[k] = dgrad_launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for k, v in graphs_phase(torch, np, dev, card).items():
+        f32_launches[k] = f32_launches.get(k, 0) + v
+    log({"phase": "graphs_phase_seconds",
+         "seconds": time.perf_counter() - t0})
     for k in kernels:
         k["launches"] += f32_launches.get(k["name"], 0)
         if k["name"] in dgrad_launches:

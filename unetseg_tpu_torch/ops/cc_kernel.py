@@ -35,6 +35,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from unetseg_tpu_torch import graphs
 from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc, read_log
 from unetseg_tpu_torch.ops import cc
 from unetseg_tpu_torch.ops.conv import parse_ptxas
@@ -50,7 +51,8 @@ TOUCH_BIT = -2 ** 31
 
 #: Kernel launches per entry since the last :func:`reset_launches`;
 #: ``cc_label`` counts both labelling entries (with and without stats).
-LAUNCHES: Dict[str, int] = {"cc_label": 0, "propagate_min": 0}
+LAUNCHES: Dict[str, int] = graphs.counts_launches(
+    {"cc_label": 0, "propagate_min": 0})
 
 _lock = threading.Lock()
 _lib = None

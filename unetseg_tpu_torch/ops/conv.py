@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch.overrides import handle_torch_function, has_torch_function_unary
 
+from unetseg_tpu_torch import graphs
 from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc, read_log
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -65,9 +66,9 @@ SOURCE_F32 = os.path.join(CSRC, "conv3x3_f32.cu")
 HEADER = os.path.join(CSRC, "hopper.cuh")
 
 #: Kernel launches per variant since the last :func:`reset_launches`.
-LAUNCHES: Dict[str, int] = {"conv3x3_bias_act": 0,
-                            "conv3x3_bias_act_small_c": 0,
-                            "conv3x3_bias_act_f32": 0}
+LAUNCHES: Dict[str, int] = graphs.counts_launches(
+    {"conv3x3_bias_act": 0, "conv3x3_bias_act_small_c": 0,
+     "conv3x3_bias_act_f32": 0})
 #: Of those, the launches the data gradient made (:class:`Conv3x3Function`).
 DGRAD_LAUNCHES: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 

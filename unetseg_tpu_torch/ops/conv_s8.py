@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch.overrides import handle_torch_function, has_torch_function_unary
 
+from unetseg_tpu_torch import graphs
 from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc, read_log
 from unetseg_tpu_torch.ops.conv import (_ERRORS, HEADER, TilePlan,
                                         _check_grid, _check_plan,
@@ -46,7 +47,7 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "conv3x3_s8.cu")
 
 #: Kernel launches since the last :func:`reset_launches`, both epilogues.
-LAUNCHES = {"conv3x3_s8": 0}
+LAUNCHES = graphs.counts_launches({"conv3x3_s8": 0})
 
 #: The (bkc, bn, fold) plans ``csrc/conv3x3_s8.cu`` instantiates, each in
 #: both epilogues (f32 and int8 out): every plan :func:`tile_plan_s8` makes.

@@ -38,6 +38,7 @@ from typing import Dict, NamedTuple
 import torch
 from torch.overrides import handle_torch_function, has_torch_function_unary
 
+from unetseg_tpu_torch import graphs
 from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc, read_log
 from unetseg_tpu_torch.ops.conv import (HEADER, conv3x3_bias_act_plain,
                                         parse_ptxas)
@@ -59,7 +60,7 @@ ACC_FLOATS = 128
 CONSUMERS = 2
 
 #: Kernel launches since the last :func:`reset_launches`.
-LAUNCHES: Dict[str, int] = {"dec1_fused": 0}
+LAUNCHES: Dict[str, int] = graphs.counts_launches({"dec1_fused": 0})
 
 # The entry point's own error codes (CUDA's are positive).
 _ERRORS = {-1: "tile plan refused", -2: "no cuTensorMapEncodeTiled in the "

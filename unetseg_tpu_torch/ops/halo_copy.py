@@ -22,6 +22,7 @@ from typing import Dict
 
 import torch
 
+from unetseg_tpu_torch import graphs
 from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -30,7 +31,8 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 NAMES = {1: "copy_elem", 0: "copy_blocked"}
 
 #: Kernel launches per JAX kernel since the last :func:`reset_launches`.
-LAUNCHES: Dict[str, int] = {name: 0 for name in NAMES.values()}
+LAUNCHES: Dict[str, int] = graphs.counts_launches(
+    {name: 0 for name in NAMES.values()})
 
 _lock = threading.Lock()
 _lib = None
