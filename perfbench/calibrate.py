@@ -29,22 +29,22 @@ import numpy as np  # noqa: E402
 
 from perfbench import harness, inputs  # noqa: E402
 from perfbench.reference import host  # noqa: E402
-from perfbench.reference.unet import (  # noqa: E402
-    Reference, first_max, widest_gap)
+from perfbench.reference.logit_gap import first_max, widest_gap  # noqa: E402
 
 
 def control_gap(cfg: dict, traffic: dict, seed: int, device) -> float:
     """The widest gap of the control's classes on the run's slices."""
     raws = inputs.slices(seed, traffic["distinct_slices"], traffic["raw_size"])
+    fam = harness.family(cfg)
     w = cfg["weights"]
     if w["kind"] == "checkpoint":
         params, _ = host.read_checkpoint(os.path.join(ROOT, w["path"]))
     else:
         params = inputs.seeded_params(cfg, seed, raws[: w["centre_on_slices"]],
-                                      device)
+                                      device, fam)
     u8 = np.stack([host.preprocess_u8(r, cfg["image_size"]) for r in raws])
-    ref = Reference(params, cfg["stem"], device).logits(u8)
-    ctl = Reference(params, cfg["stem"], device, quant="fp8").logits(u8)
+    ref = fam.Reference(params, cfg, device).logits(u8)
+    ctl = fam.Reference(params, cfg, device, quant="fp8").logits(u8)
     return max(widest_gap(r, first_max(c)) for r, c in zip(ref, ctl))
 
 

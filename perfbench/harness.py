@@ -4,7 +4,8 @@ window, judge what the timed path produced, and build the result line.
 Everything that belongs to a configuration, a traffic mix or a per-layer
 metric is a file of its own, found by the name ``BENCHMARK.json`` gives:
 
-* ``configs/<config>.json``: the sizes as run, the weights' origin;
+* ``configs/<config>.json``: the sizes as run, the weights' origin, and
+  under ``"reference"`` the module that models it (``family``);
 * ``traffic/<traffic>.json``: the mix's parameters; its ``kind`` names the
   generator in ``kinds/`` that runs it;
 * ``limits/<workload>.json``: the limit of each number compared;
@@ -60,7 +61,8 @@ def cell(name: str, man: Optional[dict] = None) -> dict:
         return "workloads" not in m or name in m["workloads"]
 
     return {"workload": work,
-            "config": _json("configs", work["config"] + ".json"),
+            "config": {"name": work["config"],
+                       **_json("configs", work["config"] + ".json")},
             "traffic": _json("traffic", work["traffic"] + ".json"),
             "limits": _json("limits", name + ".json"),
             "end_to_end": [m for m in man["end_to_end"] if reported(m)],
@@ -74,6 +76,39 @@ def reader(metric: str) -> Callable[[dict], Optional[float]]:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+#: What a configuration's reference module exports
+#: (``perfbench/reference/__init__.py``).
+FAMILY = ("init", "centre", "Reference", "flops_per_slice")
+
+
+def family(cfg: dict):
+    """The module that the configuration's ``"reference"`` names (a path
+    from the checkout's root), loaded by path once a process: its seeded
+    weights, where its head takes the bias, its reference model and its
+    FLOPs a slice."""
+    where = f"perfbench/configs/{cfg.get('name')}.json"
+    rel = cfg.get("reference")
+    if not rel:
+        raise ValueError(f"{where}: no \"reference\" names the module of "
+                         f"its model")
+    path = os.path.join(ROOT, rel)
+    if os.path.isabs(rel) or ".." in rel.split("/") or \
+            not os.path.isfile(path):
+        raise ValueError(f"{where}: its reference {rel!r} is no file of the "
+                         f"checkout")
+    name = os.path.splitext(os.path.normpath(rel))[0].replace(os.sep, ".")
+    mod = sys.modules.get(name)
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    missing = [n for n in FAMILY if not hasattr(mod, n)]
+    if missing:
+        raise ValueError(f"{where}: its reference {rel} lacks {missing}")
+    return mod
 
 
 class ForbiddenModules(RuntimeError):
@@ -105,6 +140,8 @@ class Run:
     setup_parts: Dict[str, float] = dataclasses.field(default_factory=dict)
     attempted: int = 0
     failed: int = 0
+    #: the configuration's reference module (``family``)
+    family: object = None
     #: filled by the kind: end-to-end values, the per-layer readers'
     #: context, the numbers compared, and things to print.
     e2e: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -145,7 +182,8 @@ def weights(run: Run, raws: np.ndarray):
         return ref, params, mcfg, path
     if w["kind"] == "seeded":
         tree = inputs.seeded_params(run.cfg, run.seed,
-                                    raws[: w["centre_on_slices"]], run.device)
+                                    raws[: w["centre_on_slices"]], run.device,
+                                    run.family)
         return tree, copy.deepcopy(tree), model_config(run.cfg), None
     raise ValueError(f"unknown weights kind {w['kind']!r}")
 
@@ -191,14 +229,13 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
     path underneath (the tests' faults)."""
     spec = cell(workload)
     over = overrides or {}
-    cfg = {"name": spec["workload"]["config"], **spec["config"],
-           **over.get("config", {})}
+    cfg = {**spec["config"], **over.get("config", {})}
     traffic = {**spec["traffic"], **over.get("traffic", {})}
     limits = {**spec["limits"], **over.get("limits", {})}
     tmp = os.path.join(tempfile.gettempdir(), "perfbench", workload)
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    r = Run(workload, cfg, traffic, seed, device, tmp)
+    r = Run(workload, cfg, traffic, seed, device, tmp, family=family(cfg))
     kind = importlib.import_module("perfbench.kinds." + traffic["kind"])
     cuda = torch.device(device).type == "cuda"
 

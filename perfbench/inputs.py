@@ -1,19 +1,17 @@
 """What a run feeds the program, made from its seed: synthetic CT-like
 slices, the RAW files of a study, and a configuration's
-weights (read from a checkpoint, or drawn on the card and their head bias
-centred by the reference)."""
+seeded weights (drawn on the card by its reference module, their head bias
+centred by its reference)."""
 
 from __future__ import annotations
 
-import math
 import os
-from typing import List, Tuple
+from typing import List
 
 import numpy as np
 import torch
 
 from perfbench.reference import host
-from perfbench.reference.unet import Reference
 
 
 def synth_slice(rng: np.random.Generator, size: int) -> np.ndarray:
@@ -64,60 +62,17 @@ def write_files(raws: np.ndarray, directory: str, n_files: int) -> List[str]:
     return paths
 
 
-def _he_tree(cfg: dict, gen: torch.Generator, device) -> dict:
-    """He-normal 3x3, up- and head weights and zero biases in the JAX
-    layout, drawn in one call on ``device`` and rounded to bfloat16, the
-    type the program serves them in."""
-    stem, d = cfg["stem"], cfg["depth"]
-    chans = [cfg["base_channels"] * 2 ** i for i in range(d)]
-    bott = cfg["base_channels"] * 2 ** d
-    shapes: List[Tuple[str, tuple]] = []
-    cin = cfg.get("in_channels", 1) * stem * stem
-    for i, c in enumerate(chans):
-        shapes += [(f"encoder.{i}.conv1", (3, 3, cin, c)),
-                   (f"encoder.{i}.conv2", (3, 3, c, c))]
-        cin = c
-    shapes += [("bottleneck.conv1", (3, 3, chans[-1], bott)),
-               ("bottleneck.conv2", (3, 3, bott, bott))]
-    cin = bott
-    for j, c in enumerate(reversed(chans)):
-        shapes += [(f"decoder.{j}.up", (2, 2, cin, c)),
-                   (f"decoder.{j}.conv1", (3, 3, 2 * c, c)),
-                   (f"decoder.{j}.conv2", (3, 3, c, c))]
-        cin = c
-    shapes.append(("head", (1, 1, chans[0], cfg["num_classes"] * stem * stem)))
-    total = sum(math.prod(s) for _, s in shapes)
-    flat = torch.randn(total, generator=gen, device=device)
-    tree: dict = {"encoder": [{} for _ in chans], "bottleneck": {},
-                  "decoder": [{} for _ in chans]}
-    pos = 0
-    for name, shape in shapes:
-        n = math.prod(shape)
-        fan_in = shape[0] * shape[1] * shape[2]
-        w = (flat[pos: pos + n].reshape(shape) * math.sqrt(2.0 / fan_in))
-        pos += n
-        site = {"w": w.bfloat16().float().cpu().numpy(),
-                "b": np.zeros(shape[-1], np.float32)}
-        parts = name.split(".")
-        if parts[0] == "head":
-            tree["head"] = site
-        elif parts[0] == "bottleneck":
-            tree["bottleneck"][parts[1]] = site
-        else:
-            tree[parts[0]][int(parts[1])][parts[2]] = site
-    return tree
-
-
-def seeded_params(cfg: dict, seed: int, raws: np.ndarray, device) -> dict:
-    """The configuration's seeded weights, the head bias set to minus the
-    median logit of each class that the reference computes on ``raws``
-    (so random weights paint every class, and masks have contours)."""
+def seeded_params(cfg: dict, seed: int, raws: np.ndarray, device,
+                  family) -> dict:
+    """The configuration's seeded weights, drawn by its reference module
+    ``family`` on ``device``, and the head bias set to minus the median
+    logit of each class that the reference computes on ``raws`` (so random
+    weights paint every class, and masks have contours)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    tree = _he_tree(cfg, gen, device)
+    tree = family.init(cfg, gen, device)
     u8 = np.stack([host.preprocess_u8(r, cfg["image_size"]) for r in raws])
-    logits = Reference(tree, cfg["stem"], device).logits(u8)
-    bias = -np.median(logits.reshape(-1, cfg["num_classes"]), axis=0)
-    bias = np.tile(bias, cfg["stem"] ** 2)  # the head's (dy, dx, k) order
-    tree["head"]["b"] = torch.tensor(bias).bfloat16().float().numpy()
+    logits = family.Reference(tree, cfg, device).logits(u8)
+    family.centre(tree, -np.median(logits.reshape(-1, cfg["num_classes"]),
+                                   axis=0))
     return tree

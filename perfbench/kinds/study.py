@@ -13,7 +13,8 @@ studies after the first ``trace_after``.
 Judged: one file of each distinct slice, drawn from the seed, in every
 study: the u8 the device got (from the host's resample or its own), its
 decoded mask against the reference's float32 logits, its cleanup, its
-contour JSON where one is written, and the mask the callback received.
+contour JSON where one is written, and the mask the callback received;
+the logits are the reference module's that the configuration names.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 
 from perfbench import harness, inputs, taps as taps_mod
 from perfbench.reference import host
-from perfbench.reference.unet import Reference, widest_gap
+from perfbench.reference.logit_gap import widest_gap
 from perfbench.trace import Profiler, spans
 
 
@@ -145,8 +146,8 @@ def window(run, seconds: float, traced: bool) -> None:
     for x in plain:
         for k, v in x["stages"].items():
             stage_s[k] = stage_s.get(k, 0.0) + v
-    run.ctx.update(cfg=run.cfg, batch=tr["batch"], stages=stage_s,
-                   slices_untraced=n * len(plain), trace=trace,
+    run.ctx.update(cfg=run.cfg, family=run.family, batch=tr["batch"],
+                   stages=stage_s, slices_untraced=n * len(plain), trace=trace,
                    traced_slices=n * n_trace if trace is not None else 0)
     run.notes.append(
         f"window studies {len(studies)} slices {n * len(done)} "
@@ -180,7 +181,7 @@ def judge(run) -> dict:
     t_judge = time.perf_counter()
     ids = sorted(tap.masks)
     u8_ref = {i: host.preprocess_u8(raws[i], size) for i in range(d)}
-    ref = Reference(st["ref_params"], cfg["stem"], run.device)
+    ref = run.family.Reference(st["ref_params"], cfg, run.device)
     logits = ref.logits(np.stack([u8_ref[i] for i in ids])) if ids else []
     t_ref = time.perf_counter()
     t_poly = 0.0

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from perfbench import counts, peaks
+from perfbench import peaks
 
 
 def idle_pct(ctx: dict) -> Optional[float]:
@@ -41,5 +41,5 @@ def mfu_pct(ctx: dict) -> Optional[float]:
     tr, slices = ctx.get("trace"), ctx.get("traced_slices") or 0
     if tr is None or not slices:
         return None
-    flops = counts.model_flops_per_slice(ctx["cfg"]) * slices
+    flops = ctx["family"].flops_per_slice(ctx["cfg"]) * slices
     return 100.0 * flops / tr.window_s / peaks.BF16_FLOPS

@@ -3,7 +3,7 @@ skipped: ``correct`` holds on the sound path and comes out false with the
 timed path broken underneath, once for each fault the cell can have (an
 answer altered where it is produced; half of a batch left out; the
 preprocessed u8 shifted by a pixel where it is made, on the host or on
-the device)."""
+the device); and the same for the cell run with the Attention U-Net."""
 
 import json
 import subprocess
@@ -17,8 +17,15 @@ STUDY = {"distinct_slices": 4, "study_slices": 10, "batch": 4,
          "warm_studies": 1, "raw_size": 96}
 # the benchmark's cell at a small size, and the study generator's other
 # path on it: the host library's resample and contour JSON artifacts
-# (stem 4, as the shipped slim4 serves them), no callback
+# (stem 4, as the shipped slim4 serves them), no callback; and the cell with
+# another family named in its configuration (its weights, reference and
+# FLOPs from the module that ``"reference"`` names)
 CELLS = {
+    "attention_unet": ("flagship.study_masks", {
+        "config": {"arch": "attention_unet",
+                   "reference": "perfbench/reference/attention_unet.py",
+                   "base_channels": 16, "depth": 2, "image_size": 64},
+        "traffic": STUDY}),
     "device_resample": ("flagship.study_masks", {
         "config": {"base_channels": 16, "depth": 2, "image_size": 64},
         "traffic": STUDY}),

@@ -9,6 +9,8 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
 from perfbench import harness
 
 PROBE = """
@@ -38,9 +40,29 @@ def test_harness_loads_no_jax():
     assert not mods & set(harness.FORBIDDEN)
 
 
-def test_reference_loads_nothing_of_the_program():
-    mods = _loaded("import perfbench.reference.unet, "
-                   "perfbench.reference.host, perfbench.reference.contours")
+REFERENCE = sorted(
+    os.path.splitext(f)[0]
+    for f in os.listdir(os.path.join(harness.HERE, "reference"))
+    if f.endswith(".py") and f != "__init__.py")
+
+
+def test_reference_modules_found():
+    assert {"unet", "attention_unet", "host", "contours", "logit_gap"} <= \
+        set(REFERENCE)
+
+
+@pytest.mark.parametrize("module", REFERENCE)
+def test_reference_loads_nothing_of_the_program(module):
+    mods = _loaded(f"import perfbench.reference.{module}")
+    assert not mods & {"unetseg_tpu_torch", *harness.FORBIDDEN}
+
+
+def test_reference_loaded_by_path_loads_nothing_of_the_program():
+    mods = _loaded("import perfbench.harness as h\n"
+                   "[h.family(h.cell(w['name'])['config']) "
+                   "for w in h.manifest()['workloads']]\n"
+                   "h.family({'reference': "
+                   "'perfbench/reference/attention_unet.py'})")
     assert not mods & {"unetseg_tpu_torch", *harness.FORBIDDEN}
 
 

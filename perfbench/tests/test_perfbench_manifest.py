@@ -76,6 +76,34 @@ def test_configs_used_and_files_under_paths():
             json.load(f)
 
 
+@pytest.mark.parametrize("config", MAN["configs"], ids=lambda c: c["name"])
+def test_config_names_its_reference_module(config):
+    cfg = harness.cell(next(w["name"] for w in MAN["workloads"]
+                            if w["config"] == config["name"]))["config"]
+    ref = cfg["reference"]
+    assert ref.startswith("perfbench/reference/") and ref.endswith(".py")
+    assert os.path.isfile(os.path.join(harness.ROOT, ref))
+    fam = harness.family(cfg)
+    for name in harness.FAMILY:
+        assert callable(getattr(fam, name)), name
+    assert fam.flops_per_slice(cfg) > 0
+
+
+@pytest.mark.parametrize("cfg,says", [
+    ({"name": "nameless"}, "no \"reference\""),
+    ({"name": "missing", "reference": "perfbench/reference/nothing.py"},
+     "no file"),
+    ({"name": "outside", "reference": "../perfbench/reference/unet.py"},
+     "no file"),
+    ({"name": "host", "reference": "perfbench/reference/host.py"}, "lacks"),
+])
+def test_family_refused_at_set_up(cfg, says):
+    with pytest.raises(ValueError) as e:
+        harness.family(cfg)
+    assert f"perfbench/configs/{cfg['name']}.json" in str(e.value)
+    assert says in str(e.value)
+
+
 def test_bounds():
     for m in MAN["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25

@@ -7,9 +7,10 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import inputs
-from perfbench.reference import host
-from perfbench.reference.unet import Reference, first_max, widest_gap
+from perfbench import harness, inputs
+from perfbench.calibrate import control_gap
+from perfbench.reference import attention_unet, host, unet
+from perfbench.reference.logit_gap import first_max, widest_gap
 
 
 def _port_logits(params, cfg_dict, u8):
@@ -24,28 +25,51 @@ def _port_logits(params, cfg_dict, u8):
         return model(x).numpy()
 
 
-@pytest.mark.parametrize("stem,depth", [(1, 2), (4, 2), (1, 3)])
-def test_unet_matches_the_port_in_float32(stem, depth):
-    cfg = dict(arch="unet", in_channels=1, num_classes=3, base_channels=16,
+def _matches_the_port_in_float32(family, arch, stem, depth):
+    cfg = dict(arch=arch, in_channels=1, num_classes=3, base_channels=16,
                depth=depth, image_size=64, compute_dtype="float32", stem=stem)
     raws = inputs.slices(11, 2, 64)
-    params = inputs.seeded_params(cfg, 5, raws, "cpu")
+    params = inputs.seeded_params(cfg, 5, raws, "cpu", family)
     u8 = np.stack([host.preprocess_u8(r, 64) for r in raws])
-    ref = Reference(params, stem, "cpu").logits(u8)
+    ref = family.Reference(params, cfg, "cpu").logits(u8)
     port = _port_logits(params, cfg, u8)
     scale = np.abs(ref).max()
     assert np.abs(ref - port).max() <= 1e-4 * scale
     assert widest_gap(ref[0], first_max(port[0])) < 1e-3
 
 
+@pytest.mark.parametrize("stem,depth", [(1, 2), (4, 2), (1, 3)])
+def test_unet_matches_the_port_in_float32(stem, depth):
+    _matches_the_port_in_float32(unet, "unet", stem, depth)
+
+
+@pytest.mark.parametrize("stem,depth", [(1, 2), (4, 2), (1, 3)])
+def test_attention_unet_matches_the_port_in_float32(stem, depth):
+    _matches_the_port_in_float32(attention_unet, "attention_unet", stem,
+                                 depth)
+
+
+def test_attention_unet_control_fails_gap_max():
+    # the flagship cell with the Attention U-Net named in its configuration,
+    # at the fault tests' small size: the float8 control in the program's
+    # place fails the cell's limit
+    spec = harness.cell("flagship.study_masks")
+    cfg = dict(spec["config"], arch="attention_unet",
+               reference="perfbench/reference/attention_unet.py",
+               base_channels=16, depth=2, image_size=64)
+    traffic = dict(spec["traffic"], distinct_slices=4, raw_size=96)
+    gap = control_gap(cfg, traffic, 2 ** 31 + 17, "cpu")
+    assert gap > spec["limits"]["gap_max"]
+
+
 def test_control_is_coarser_than_bf16():
     cfg = dict(arch="unet", in_channels=1, num_classes=3, base_channels=16,
                depth=2, image_size=64, compute_dtype="bfloat16", stem=1)
     raws = inputs.slices(12, 2, 64)
-    params = inputs.seeded_params(cfg, 6, raws, "cpu")
+    params = inputs.seeded_params(cfg, 6, raws, "cpu", unet)
     u8 = np.stack([host.preprocess_u8(r, 64) for r in raws])
-    ref = Reference(params, 1, "cpu").logits(u8)
-    ctl = Reference(params, 1, "cpu", quant="fp8").logits(u8)
+    ref = unet.Reference(params, cfg, "cpu").logits(u8)
+    ctl = unet.Reference(params, cfg, "cpu", quant="fp8").logits(u8)
     port = _port_logits(params, cfg, u8)   # bf16 on the CPU
     g_port = max(widest_gap(r, first_max(p)) for r, p in zip(ref, port))
     g_ctl = max(widest_gap(r, first_max(c)) for r, c in zip(ref, ctl))

@@ -35,9 +35,10 @@ def test_seeded_weights():
     cfg = dict(harness.cell("flagship.study_masks")["config"],
                base_channels=16, depth=2, image_size=64)
     raws = inputs.slices(3, 2, 64)
-    a = inputs.seeded_params(cfg, BIG, raws, "cpu")
-    b = inputs.seeded_params(cfg, BIG, raws, "cpu")
-    c = inputs.seeded_params(cfg, BIG + 1, raws, "cpu")
+    fam = harness.family(cfg)
+    a = inputs.seeded_params(cfg, BIG, raws, "cpu", fam)
+    b = inputs.seeded_params(cfg, BIG, raws, "cpu", fam)
+    c = inputs.seeded_params(cfg, BIG + 1, raws, "cpu", fam)
     w = lambda t: t["encoder"][1]["conv2"]["w"]  # noqa: E731
     assert np.array_equal(w(a), w(b)) and not np.array_equal(w(a), w(c))
     assert np.array_equal(a["head"]["b"], b["head"]["b"])
