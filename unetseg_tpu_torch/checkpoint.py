@@ -297,37 +297,44 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> dict:
     arrays.
 
     A name's last part (``weight``, ``bias``; ``head_weight`` and
-    ``head_bias`` for the UNet's top-level head) picks ``w`` or ``b``; the
-    rest is the site's path.  A site named ``up`` is an up-conv (its
-    ``(C, 4*O)`` weight back to HWIO by :func:`up_weight_to_hwio`), any
-    other 2-D weight a 1x1 conv ``(1, 1, C, O)``; 3x3 weights are HWIO
-    already.  A node whose keys are all integers becomes a list, as the
-    JAX trees hold ``encoder``, ``decoder``, ``backbone`` and ``heads``;
-    UNet++'s ``nodes`` (keys ``"i_j"``) stay a dict."""
+    ``head_bias`` for the top-level head) picks ``w`` or ``b``; the rest is
+    the site's path.  A site named ``up`` is an up-conv (its ``(C, 4*O)``
+    weight back to HWIO by :func:`up_weight_to_hwio`), any other 2-D weight
+    a 1x1 conv ``(1, 1, C, O)``, a 1-D weight a norm's ``scale`` (its bias
+    then ``bias``); 3x3 and larger weights are HWIO already, and a per-head
+    product's 3-D weight is kept.  Any other last part is an array of its
+    own at that path (TransUNet's ``embed.pos``).  A node whose keys are
+    all integers becomes a list, as the JAX trees hold ``encoder``,
+    ``decoder``, ``backbone`` and ``heads``; UNet++'s ``nodes`` (keys
+    ``"i_j"``) stay a dict."""
     tree: dict = {}
     for name, t in state.items():
         if name in ("head_weight", "head_bias"):
             path, leaf = ["head"], name[len("head_"):]
         else:
             *path, leaf = name.split(".")
-        if leaf not in ("weight", "bias") or not path:
+        if not path:
             raise ValueError(f"params_to_jax: {name!r} is not a float "
                              f"family's weight or bias")
         a = t.detach().to("cpu", torch.float32).numpy()
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
         if leaf == "weight":
             if path[-1] == "up":
                 a = up_weight_to_hwio(a)
             elif a.ndim == 2:
                 a = a.reshape(1, 1, *a.shape)
-        node = tree
-        for part in path:
-            node = node.setdefault(part, {})
-        node["w" if leaf == "weight" else "b"] = np.array(a)
+            node["scale" if a.ndim == 1 else "w"] = np.array(a)
+        else:
+            node["b" if leaf == "bias" else leaf] = np.array(a)
 
     def lists(node):
         if not isinstance(node, dict):
             return node
         node = {k: lists(v) for k, v in node.items()}
+        if "scale" in node and "b" in node:  # a norm's shift
+            node["bias"] = node.pop("b")
         if node and all(k.isdigit() for k in node):
             return [node[str(i)] for i in range(len(node))]
         return node
@@ -342,10 +349,16 @@ def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     the tree (``decoder.0.att_x``, ``nodes.0_1.up``, ``heads.2``); the
     modules of ``models/`` carry the same names.  By kernel size:
 
-    * 3x3 convs keep HWIO ``(3, 3, C, D)``; contiguous, that is the
-      ``(9*C, D)`` operand the conv kernel reads.
+    * 3x3 (and TransUNet's 7x7) convs keep HWIO ``(3, 3, C, D)``;
+      contiguous, that is the ``(9*C, D)`` operand the conv kernel reads.
     * 2x2 up-convs become matmul weights (:func:`up_weight_from_hwio`).
     * 1x1 convs ``(1, 1, C, O)`` become ``(C, O)`` products.
+
+    A conv site without ``b`` (TransUNet's ResNet) has no bias.  TransUNet's
+    other sites: a dict holding a 2- or 3-D ``w`` (the attention's per-head
+    products) keeps it as ``{path}.weight``; a norm ``{"scale", "bias"}``
+    becomes ``{path}.weight`` and ``{path}.bias``; an array outside any site
+    (``embed.pos``) is ``{path}``.
 
     The top-level ``head`` of the UNet and Attention U-Net trees is the
     modules' ``head_weight`` / ``head_bias``.  A list may also come as a
@@ -381,16 +394,24 @@ def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     def walk(node, path: str) -> None:
         if isinstance(node, dict) and "w_q" in node:
             w8a8_site(node, path)
-        elif isinstance(node, dict) and getattr(node.get("w"), "ndim", 0) == 4:
+        elif isinstance(node, dict) and getattr(node.get("w"), "ndim", 0) in (
+                2, 3, 4):
             w = np.asarray(node["w"])
-            if w.shape[0] == 2:
+            if w.ndim == 4 and w.shape[0] == 2:
                 w = up_weight_from_hwio(w)
-            elif w.shape[0] == 1:
+            elif w.ndim == 4 and w.shape[0] == 1:
                 w = w.reshape(w.shape[2], w.shape[3])
             prefix = "head_" if path == "head" else path + "."
             # owned, writable copies
             state[prefix + "weight"] = torch.from_numpy(np.array(w))
-            state[prefix + "bias"] = torch.from_numpy(np.array(node["b"]))
+            if "b" in node:
+                state[prefix + "bias"] = torch.from_numpy(np.array(node["b"]))
+        elif isinstance(node, dict) and getattr(node.get("scale"), "ndim",
+                                                0) == 1:
+            state[path + ".weight"] = torch.from_numpy(np.array(node["scale"]))
+            state[path + ".bias"] = torch.from_numpy(np.array(node["bias"]))
+        elif hasattr(node, "ndim"):
+            state[path] = torch.from_numpy(np.array(node))
         elif isinstance(node, dict):
             for k, v in node.items():
                 walk(v, f"{path}.{k}" if path else k)

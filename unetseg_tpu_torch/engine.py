@@ -249,10 +249,12 @@ class InferenceEngine:
         * a float family otherwise: the weight-space ensemble on the first
           device, 8 passes of the untransposed slice through models whose
           kernels carry the inverse transforms;
-        * ``unet_w8a8``: the activation-space ensemble (its activation
-          scales are not transform-aware): the 8 views over the devices in
-          one pass a device when their count divides 8, else one pass of
-          the 8 views on the first device.
+        * ``unet_w8a8`` (its activation scales are not transform-aware)
+          and a family whose forward does not commute with the transforms
+          (``registry.Family.equivariant``: TransUNet's attention and
+          position embedding): the activation-space ensemble, the 8 views
+          over the devices in one pass a device when their count divides
+          8, else one pass of the 8 views on the first device.
 
         Every pass runs the model's ``forward``: the logits are averaged
         before the argmax, and the fused last level (K6) returns masks
@@ -261,7 +263,8 @@ class InferenceEngine:
             post = self.device_postprocess
             split = self.mesh is not None and \
                 tta.N_TRANSFORMS % self.mesh.shape["dp"] == 0
-            if self.cfg.arch == "unet_w8a8":
+            if self.cfg.arch == "unet_w8a8" or \
+                    not model_registry.get(self.cfg.arch).equivariant:
                 self._tta = ("act", tta.make_tta_pipeline(
                     self.models if split else self.model,
                     device_postprocess=post,

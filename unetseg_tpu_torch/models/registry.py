@@ -2,27 +2,29 @@
 
 Checkpoints name their family in ``ModelConfig.arch``; every pipeline
 builds its model through :func:`build`, so the engine, TTA, windows, the
-study runner and the cascade serve any registered family.  The three float
-families are registered here: ``unet``, ``attention_unet`` and ``unetpp``;
-the quantized ``unet_w8a8`` registers itself from ``quantize.py`` at its
-first lookup.  A
-family is the module that holds its weights (made from the config and the
-parameter tree, whose head count UNet++ keeps) and its ``init``; one
-mapping, ``checkpoint.params_from_jax``, names every family's conv sites
-by their path in the JAX tree.
+study runner and the cascade serve any registered family.  The four float
+families are registered here: ``unet``, ``attention_unet``, ``unetpp`` and
+``transunet`` (the port's own); the quantized ``unet_w8a8`` registers itself
+from ``quantize.py`` at its first lookup.  A family is the module that holds
+its weights (made from the config and the parameter tree, whose head count
+UNet++ keeps and from which TransUNet reads every width) and its ``init``;
+one mapping, ``checkpoint.params_from_jax``, names every family's sites by
+their path in the JAX tree.  A family may refuse paths it cannot take
+(:attr:`Family.refuses`, :func:`refuse`), each refusal naming the arch and
+why.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from types import MappingProxyType
+from typing import Callable, Dict, Mapping, NamedTuple
 
 import torch
 from torch import nn
 
 from unetseg_tpu_torch.checkpoint import params_from_jax
 from unetseg_tpu_torch.config import ModelConfig
-from unetseg_tpu_torch.models import attention_unet, unet, unetpp
-
+from unetseg_tpu_torch.models import attention_unet, transunet, unet, unetpp
 
 
 class Family(NamedTuple):
@@ -33,14 +35,24 @@ class Family(NamedTuple):
     #: A float family, cast to the config's compute dtype when built; the
     #: quantized family keeps its stored int8 and f32 tensors.
     cast: bool = True
+    #: Paths the family cannot take ("row bands", "w8a8", "training"), each
+    #: with the reason its refusal gives (:func:`refuse`).
+    refuses: Mapping[str, str] = MappingProxyType({})
+    #: Whether the forward commutes with the dihedral transforms of its
+    #: kernels, so that TTA may transform the weights instead of the input
+    #: (``parallel/tta.py``).
+    equivariant: bool = True
 
 
 _REGISTRY: Dict[str, Family] = {}
 
 
 def register(name: str, module: Callable, init_fn: Callable,
-             cast: bool = True) -> None:
-    _REGISTRY[name] = Family(module, init_fn, cast)
+             cast: bool = True,
+             refuses: Mapping[str, str] = MappingProxyType({}),
+             equivariant: bool = True) -> None:
+    _REGISTRY[name] = Family(module, init_fn, cast,
+                             MappingProxyType(dict(refuses)), equivariant)
 
 
 register("unet", lambda cfg, params: unet.UNet(cfg), unet.init)
@@ -50,6 +62,12 @@ register("attention_unet",
 register("unetpp",
          lambda cfg, params: unetpp.UNetPP(cfg, len(params["heads"])),
          unetpp.init)
+_GLOBAL = "its attention mixes every token of the slice"
+register("transunet", transunet.TransUNet, transunet.init, refuses={
+    "row bands": _GLOBAL + ", so no band computes its part alone",
+    "w8a8": "quantization covers the UNet family",
+    "training": "the port trains the convolutional families only"},
+    equivariant=False)
 
 
 def get(name: str) -> Family:
@@ -62,6 +80,15 @@ def get(name: str) -> Family:
         raise KeyError(f"Unknown model arch '{name}'; registered: "
                        f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def refuse(cfg: ModelConfig, path: str) -> None:
+    """Raises NotImplementedError, naming the arch and the reason, where
+    ``cfg.arch``'s family cannot take ``path``."""
+    reason = get(cfg.arch).refuses.get(path)
+    if reason is not None:
+        raise NotImplementedError(f"arch {cfg.arch!r} cannot run {path}: "
+                                  f"{reason}")
 
 
 def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -96,6 +123,7 @@ def trainable(cfg: ModelConfig, state: Dict[str, torch.Tensor]) -> nn.Module:
     ``cfg.compute_dtype`` per call.  The quantized family is not
     trainable, as in JAX."""
     family = get(cfg.arch)
+    refuse(cfg, "training")
     unet.compute_dtype(cfg)
     if not family.cast:
         raise NotImplementedError(

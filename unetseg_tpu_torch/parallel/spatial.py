@@ -65,7 +65,11 @@ def reset_exchange() -> None:
 
 def row_unit(cfg: ModelConfig) -> int:
     """f, the input rows a band is cut in units of: ``stem * 2**depth``, so
-    that space-to-depth and every 2x2 max-pool stay inside a band."""
+    that space-to-depth and every 2x2 max-pool stay inside a band.  Raises
+    for a family that cannot run in bands (``registry.refuse``)."""
+    from unetseg_tpu_torch.models import registry
+
+    registry.refuse(cfg, "row bands")
     return cfg.stem * 2 ** cfg.depth
 
 

@@ -145,6 +145,7 @@ def calibrate(params, cfg: ModelConfig, calib_batches,
     every activation would saturate."""
     from unetseg_tpu_torch.models import registry  # it imports this module
 
+    registry.refuse(cfg, "w8a8")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' "
@@ -468,7 +469,10 @@ def quantize_checkpoint(src_path: str, dst_path: str, calib_batches,
     into a w8a8 one with ``arch="unet_w8a8"``, in the JAX package's format:
     ``engine.initialize_engine(dst_path)`` serves it with no other change.
     Returns (int8 tree, config)."""
+    from unetseg_tpu_torch.models import registry  # it imports this module
+
     params, cfg = checkpoint.load(src_path)
+    registry.refuse(cfg, "w8a8")
     if cfg.arch != "unet":
         raise ValueError("quantization covers the UNet family")
     scales = calibrate(params, cfg, calib_batches, device=device)
