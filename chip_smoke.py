@@ -6,9 +6,10 @@
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. Device: the card's name and power limit (nvidia-smi); no CUDA -> exit 1.
-2. Build: all six kernel sources (conv, the float32 conv K8, CCL, fused
-   last decoder level, halo copy, the int8 conv K7; nvcc, sm_90a), K6's
-   phase-stamped build and the host C++ library, all at once; then
+2. Build: all seven kernel sources (conv, the float32 conv K8, CCL, fused
+   last decoder level, halo copy, the int8 conv K7, GroupNorm K9; nvcc,
+   sm_90a), K6's phase-stamped build and the host C++ library, all at
+   once; then
    the conv kernel's, K6's, the CCL passes', K8's and K7's registers,
    spills and shared memory per instantiation, as ``nvcc -Xptxas -v``
    reported them, one line each (``conv_resources``, ``dec1_resources``,
@@ -328,19 +329,34 @@ Phases, each of which fails the run (non-zero exit) on error:
    K8, ``service_client``, ``cascade_tiers``) into a temporary directory:
    each returns 0 and writes its artifacts.
 27. The engine's forward graphs (``graphs``): for the flagship (K6), slim4
-   (stem 4, unfused), UNet++, Attention U-Net, the w8a8 slim4 (K7) and
-   slim4 in float32 (K8), at batch 32 and 1 and from both callers' input
-   forms (the u8 batch; the model input the study's device preprocess
-   gives), the counters set to 0 just before each forward: the masks a
-   replay returns are ``torch.equal`` to the eager forward's; two results
-   held across replays on different slices keep their own values; each
-   captured graph holds, kernel by kernel (``conv3x3_wgmma``,
-   ``conv3x3_tf32x3``, ``conv3x3_s8_wgmma``, ``dec1_wgmma``), as many
+   (stem 4, unfused), UNet++, Attention U-Net, the w8a8 slim4 (K7), slim4
+   in float32 (K8) and the published TransUNet (K9), at batch 32 and 1
+   and from both callers' input forms (the u8 batch; the model input the
+   study's device preprocess gives), the counters set to 0 just before
+   each forward: the masks a replay returns are ``torch.equal`` to the
+   eager forward's; two results held across replays on different slices
+   keep their own values; each captured graph holds, kernel by kernel
+   (``conv3x3_wgmma``, ``conv3x3_tf32x3``, ``conv3x3_s8_wgmma``,
+   ``dec1_wgmma``, K9's ``groupnorm_nhwc_apply``, one a norm), as many
    kernel nodes as the eager forward's wrappers counted launches (the
    graph's DOT dump), and a replay adds that many to the counters;
    ``graph_replays`` counts one a replay; an unwarmed
    batch size and a dp engine over two positions run eagerly.  Logged:
    the host ms of one ``_pipeline`` call, eager and replayed.
+28. TransUNet's GroupNorm (``groupnorm``, K9: ``csrc/groupnorm_nhwc.cu``):
+   the library's registers and spills (a spill fails the run); the 52
+   norms of a seeded published TransUNet forward at batch 32, each call's
+   inputs recorded and the kernel's counter reading one call a norm: each
+   against ``groupnorm.oracle_float64`` of the same input within its
+   ``ORACLE_TOL`` and ``ORACLE_STATS_TOL``, as the card tests hold them
+   (the plain ops within ``ORACLE_TOL`` too), and bit-equal to a second
+   call; per
+   forward by CUDA events the kernel, its plain version (the former torch
+   ops), ``F.group_norm`` on the channels-last view with the add and
+   ReLU (``library_ms``) and the byte bound (x read, the output written,
+   the residual read once, 3.35 TB/s); the whole forward at batch 32 with
+   the kernel and with the plain ops in its place, in turns, and the
+   kernel's device time in it (torch.profiler).
 
 The line before the last is the ``{"kernels": [...]}`` record, each conv
 kernel's entry with its data-gradient launches (``dgrad_launches``); the
@@ -4990,13 +5006,15 @@ KERNEL_OF = {"conv3x3_bias_act": "conv3x3_wgmma_kernel",
              "conv3x3_bias_act_small_c": "conv3x3_wgmma_kernel",
              "conv3x3_bias_act_f32": "conv3x3_tf32x3_kernel",
              "dec1_fused": "dec1_wgmma_kernel",
-             "conv3x3_s8": "conv3x3_s8_wgmma_kernel"}
+             "conv3x3_s8": "conv3x3_s8_wgmma_kernel",
+             # a norm is three launches; the apply is one a norm
+             "groupnorm_nhwc": "groupnorm_nhwc_apply"}
 
 
 def graph_launches() -> dict:
-    from unetseg_tpu_torch.ops import conv_s8
+    from unetseg_tpu_torch.ops import conv_s8, groupnorm
 
-    return {**all_launches(), **conv_s8.LAUNCHES}
+    return {**all_launches(), **conv_s8.LAUNCHES, **groupnorm.LAUNCHES}
 
 
 def by_kernel(launches: dict) -> dict:
@@ -5046,10 +5064,11 @@ def graph_kernels(graph, tmp: str):
 def counted_forward(torch, eng, *args):
     """``eng._masks_on(0, *args)`` with the counters set to 0 just before
     it: (masks, launches counted, replays it added)."""
-    from unetseg_tpu_torch.ops import conv_s8
+    from unetseg_tpu_torch.ops import conv_s8, groupnorm
 
     reset_all_launches()
     conv_s8.reset_launches()
+    groupnorm.reset_launches()
     replays = eng.graph_replays
     masks = eng._masks_on(0, *args)
     torch.cuda.synchronize()
@@ -5182,7 +5201,7 @@ def graphs_phase(torch, np, dev, card) -> dict:
             inputs = preprocess.preprocess_batch(raws, 512)
         del raws
         ckpts = {"flagship": flag_ckpt, "slim4": CKPT}
-        for name in ("unetpp", "attention_unet"):
+        for name in ("unetpp", "attention_unet", "transunet"):
             ckpts[name] = os.path.join(tmp, "models", f"{name}.ckpt")
             checkpoint.create(ckpts[name], ModelConfig(arch=name), seed=0)
             centre_head_bias(torch, checkpoint, registry, native, raw_io,
@@ -5214,6 +5233,131 @@ def graphs_phase(torch, np, dev, card) -> dict:
     return total
 
 
+# Phase 28: TransUNet's GroupNorm (K9) at the batch the study serves.
+GN_BATCH = 32
+GN_ITERS = 10
+GN_FORWARD_ITERS = 5
+GN_SOURCE = "unetseg_tpu_torch/csrc/groupnorm_nhwc.cu"
+
+
+def groupnorm_library(torch, F, x, w, b, groups, eps, relu, residual):
+    """One ``F.group_norm`` on the channels-last view of NHWC ``x`` (the
+    library's kernel, which copies to NCHW and back), then the add and the
+    ReLU: the yardstick of ``library_ms``."""
+    y = F.group_norm(x.permute(0, 3, 1, 2), groups, w, b, eps)
+    y = y.permute(0, 2, 3, 1)
+    if residual is not None:
+        y = residual + y
+    return y.relu_() if relu else y
+
+
+def groupnorm_phase(torch, np, F, dev, card) -> dict:
+    """Phase 28 (module docstring).  Returns K9's kernels-line record."""
+    from unetseg_tpu_torch.config import ModelConfig
+    from unetseg_tpu_torch.models import registry, transunet
+    from unetseg_tpu_torch.ops import groupnorm
+
+    res = groupnorm.resources()
+    for name, info in sorted(res.items()):
+        log({"phase": "groupnorm_resources", "kernel": name, **info})
+    if len(res) != 5 or any(r["spill_bytes"] for r in res.values()):
+        raise AssertionError(f"K9: want 5 kernels without spills, got {res}")
+    cfg = ModelConfig(arch="transunet")
+    model = registry.build(transunet.init(
+        cfg, torch.Generator().manual_seed(0)), cfg, str(dev))
+    g = torch.Generator(device=dev).manual_seed(28)
+    x = torch.rand((GN_BATCH, 512, 512, 1), generator=g, device=dev)
+    kernel = groupnorm.group_norm
+    calls = []
+
+    def record(x, w, b, groups, eps, relu=False, residual=None):
+        calls.append((x, w, b, groups, eps, relu, residual))
+        return kernel(x, w, b, groups, eps, relu, residual)
+
+    plain = groupnorm.group_norm_plain
+
+    def forward_with(fn):
+        transunet.groupnorm_ops.group_norm = fn
+        try:
+            with torch.inference_mode():
+                return model(x)
+        finally:
+            transunet.groupnorm_ops.group_norm = kernel
+
+    groupnorm.reset_launches()
+    forward_with(record)
+    launches = groupnorm.LAUNCHES["groupnorm_nhwc"]
+    if len(calls) != 52 or launches != len(calls):
+        raise AssertionError(f"K9: {len(calls)} norms and {launches} kernel "
+                             f"calls a forward, want 52 of each")
+    sums = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+    worst, err_max, faults = {}, 0.0, []
+    with torch.inference_mode():
+        for i, (xi, w, b, groups, eps, relu, r) in enumerate(calls):
+            args = (xi, w, b, groups, eps, relu, r)
+            got = kernel(*args)
+            if not torch.equal(got, kernel(*args)):
+                raise AssertionError(f"K9 norm {i}: two calls differ")
+            _, h, wd, c = xi.shape
+            y64, mag, operands = groupnorm.oracle_float64(*args)
+            err_k = (got.double() - y64).abs()
+            err_p = (plain(*args).double() - y64).abs()
+            key = f"{h}x{wd}x{c}/{groups}"
+            ratio = ((err_k / mag).max().item(), (err_p / mag).max().item(),
+                     ((err_k - 2.0 ** -8 * y64.abs()) / operands).max().item())
+            was = worst.get(key, (0.0, 0.0, -1.0))
+            worst[key] = tuple(max(a, b_) for a, b_ in zip(was, ratio))
+            err_max = max(err_max, err_k.max().item())
+            if ratio[0] > groupnorm.ORACLE_TOL or \
+                    ratio[1] > groupnorm.ORACLE_TOL or \
+                    ratio[2] > groupnorm.ORACLE_STATS_TOL:
+                faults.append((i, key, ratio))
+            del y64, mag, operands, err_k, err_p
+            del got
+            bound = (xi.numel() * 2 * (3 if r is not None else 2)
+                     / 3.35e12 * 1e3)
+            sums["ms"] += time_ms(torch, lambda: kernel(*args), GN_ITERS)
+            sums["plain_ms"] += time_ms(torch, lambda: plain(*args),
+                                        GN_ITERS)
+            sums["library_ms"] += time_ms(torch, lambda: groupnorm_library(
+                torch, F, *args), GN_ITERS)
+            sums["bound_ms"] += bound
+    for key, (k_ratio, p_ratio, beyond) in sorted(worst.items()):
+        log({"phase": "groupnorm_parity", "shape": key, "batch": GN_BATCH,
+             "kernel_err_over_magnitude": k_ratio,
+             "plain_err_over_magnitude": p_ratio,
+             "kernel_beyond_one_rounding_over_operands": beyond, **card})
+    if faults:
+        raise AssertionError(f"K9: error / magnitude (kernel, plain), beyond "
+                             f"one rounding / operands, past the tolerances: "
+                             f"{faults}")
+    log({"phase": "groupnorm_time", "batch": GN_BATCH, "norms": 52,
+         **sums, "share_of_bound": sums["bound_ms"] / sums["ms"], **card})
+    del calls
+    torch.cuda.empty_cache()
+    # the whole forward, the norms in the kernel or in the plain ops, in
+    # turns (plain, kernel, kernel, plain)
+    fwd = {"kernel": [], "plain": []}
+    for route in ("plain", "kernel", "kernel", "plain"):
+        fn = kernel if route == "kernel" else plain
+        fwd[route].append(time_ms(torch, lambda: forward_with(fn),
+                                  GN_FORWARD_ITERS))
+    prof = profile_pipeline(torch, lambda: forward_with(kernel), iters=3,
+                            top=80)
+    gn_ms = sum(k["ms_per_iter"] for k in prof["top"]
+                if "groupnorm_nhwc" in k["kernel"])
+    log({"phase": "groupnorm_forward", "batch": GN_BATCH,
+         "forward_ms_kernel": fwd["kernel"], "forward_ms_plain": fwd["plain"],
+         "groupnorm_device_ms_in_forward": gn_ms,
+         "device_ms_per_forward": prof["device_ms_per_iter"],
+         "top": prof["top"][:20], **card})
+    return {"name": "groupnorm_nhwc", "route": "cuda", "source": GN_SOURCE,
+            "replaces": None, "launches": launches, "max_abs_err": err_max,
+            "ms": sums["ms"], "plain_ms": sums["plain_ms"],
+            "bound_ms": sums["bound_ms"], "bound_by": "bytes",
+            "library_ms": sums["library_ms"]}
+
+
 def main() -> int:
     import torch
 
@@ -5231,7 +5375,8 @@ def main() -> int:
     from unetseg_tpu_torch.metrics import foreground_iou
     from unetseg_tpu_torch.models import registry
     from unetseg_tpu_torch.ops import (cc, cc_kernel, conv, conv_s8, dec1,
-                                       halo_copy, morphology, postprocess)
+                                       groupnorm, halo_copy, morphology,
+                                       postprocess)
     from unetseg_tpu_torch.ops.preprocess import preprocess_oracle_u8
 
     def reset_launches():
@@ -5261,7 +5406,7 @@ def main() -> int:
         for fut in [pool.submit(load) for load in (
                 conv.load, conv.load_f32, cc_kernel.load, dec1.load,
                 halo_copy.load, native.load, dec1_phases.load,
-                conv_s8.load)]:
+                conv_s8.load, groupnorm.load)]:
             fut.result()
     log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3)})
     for r in conv.resources():
@@ -5661,6 +5806,11 @@ def main() -> int:
     for k, v in graphs_phase(torch, np, dev, card).items():
         f32_launches[k] = f32_launches.get(k, 0) + v
     log({"phase": "graphs_phase_seconds",
+         "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.append(groupnorm_phase(torch, np, F, dev, card))
+    log({"phase": "groupnorm_phase_seconds",
          "seconds": time.perf_counter() - t0})
     for k in kernels:
         k["launches"] += f32_launches.get(k["name"], 0)

@@ -33,8 +33,10 @@ of ``S`` serve it.  Where each part runs:
   (``torch.addmm``, the bias in the GEMM), as the UNet's up-convs and head
   are;
 * attention in ``ops.attention`` (FlashAttention on the card, counted);
-* GroupNorm, LayerNorm, GELU, max-pool and the bilinear upsampling as
-  plain ``torch`` ops.
+* GroupNorm in ``ops.groupnorm`` (on the card a kernel of the port's own,
+  counted, each unit's residual add and ReLU in its last norm's pass);
+* LayerNorm, GELU, max-pool and the bilinear upsampling as plain
+  ``torch`` ops.
 
 The model is built from the configuration and the parameter tree
 (:class:`Widths` reads every width from the tree's shapes, the head count
@@ -67,6 +69,7 @@ from torch.overrides import has_torch_function_unary
 from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.models.unet import Conv3x3, compute_dtype
 from unetseg_tpu_torch.ops import attention as attention_ops
+from unetseg_tpu_torch.ops import groupnorm as groupnorm_ops
 from unetseg_tpu_torch.ops.conv import conv3x3_bias_act_train
 from unetseg_tpu_torch.ops.decode import decode_mask
 from unetseg_tpu_torch.utils.profiling import _recording
@@ -163,14 +166,11 @@ def product(x: torch.Tensor, w: torch.Tensor,
 class GroupNorm(nn.Module):
     """GroupNorm over NHWC in place of ``F.group_norm``, whose CUDA kernel
     reads NCHW only (a copy on each side of every norm); ``weight`` and
-    ``bias`` are the tree's ``scale`` and ``bias``.
-
-    The statistics are float32 over each (image, group): the sum and the
-    2-norm in two reductions that read the compute dtype, the variance the
-    mean square less the squared mean, clamped at 0.  Then one ``addcmul``
-    applies each (image, channel)'s scale ``weight / sqrt(var + eps)`` and
-    shift ``bias - mean * scale``, both rounded to the compute dtype, and,
-    where ``relu``, one in-place ReLU."""
+    ``bias`` are the tree's ``scale`` and ``bias``.  :meth:`forward`
+    returns ``relu(residual + gn(x))``, the ReLU where asked and the add
+    only with it, through :func:`ops.groupnorm.group_norm`: on the card one
+    kernel call on bf16 (float32 statistics and output, rounded once), on
+    the CPU the plain PyTorch ops."""
 
     def __init__(self, c: int, groups: int, eps: float):
         super().__init__()
@@ -178,22 +178,11 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(c), requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(c), requires_grad=False)
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
-        n, h, w, c = x.shape
-        g = self.groups
-        xv = x.reshape(n, h * w, g, c // g)
-        count = h * w * (c // g)
-        mean = xv.sum(dim=(1, 3), keepdim=True, dtype=torch.float32) / count
-        norm = torch.linalg.vector_norm(xv, dim=(1, 3), keepdim=True,
-                                        dtype=torch.float32)
-        var = (norm * norm / count - mean * mean).clamp_min_(0)
-        scale = torch.rsqrt(var + self.eps) * \
-            self.weight.float().view(1, 1, g, c // g)
-        shift = self.bias.float().view(1, 1, g, c // g) - mean * scale
-        y = torch.addcmul(shift.to(x.dtype), xv, scale.to(x.dtype))
-        if relu:
-            y.relu_()
-        return y.view(n, h, w, c)
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return groupnorm_ops.group_norm(x, self.weight, self.bias,
+                                        self.groups, self.eps, relu=relu,
+                                        residual=residual)
 
 
 class LayerNorm(nn.Module):
@@ -269,7 +258,8 @@ class StdConv(nn.Module):
 class Bottleneck(nn.Module):
     """The authors' ``PreActBottleneck``: conv1x1 -> GN -> ReLU -> conv3x3
     (``stride``) -> GN -> ReLU -> conv1x1 -> GN, then ReLU(residual + y),
-    the residual projected where ``project``."""
+    the residual projected where ``project``; the last norm takes the add
+    and the ReLU into its own pass."""
 
     def __init__(self, cin: int, mid: int, cout: int, stride: int,
                  project: bool):
@@ -289,8 +279,7 @@ class Bottleneck(nn.Module):
             residual = self.gn_proj(self.downsample(x))
         y = self.gn1(self.conv1(x), relu=True)
         y = self.gn2(self.conv2(y), relu=True)
-        y = self.gn3(self.conv3(y))
-        return torch.relu_(residual + y)
+        return self.gn3(self.conv3(y), relu=True, residual=residual)
 
 
 class Dense(nn.Module):
