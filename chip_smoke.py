@@ -872,10 +872,6 @@ def flagship(torch, np, F, dev, card):
                                        preprocess)
     from unetseg_tpu_torch.ops.decode import decode_mask
 
-    def reset_launches():
-        for mod in (conv, cc_kernel, dec1, halo_copy):
-            mod.reset_launches()
-
     def read_launches():
         return {**conv.LAUNCHES, **dec1.LAUNCHES,
                 "cc_label": sum(cc_kernel.LAUNCHES.values())}
@@ -902,7 +898,7 @@ def flagship(torch, np, F, dev, card):
         ckpt, paths = flagship_checkpoint(torch, np, tmp, dev)
 
         # -- 9. flagship main path -------------------------------------------
-        reset_launches()
+        reset_all_launches()
         if not engine.initialize_engine(ckpt, log_dir=os.path.join(tmp, "log")):
             raise AssertionError("initialize_engine(flagship) returned False")
         eng = engine.get_engine()
@@ -1105,7 +1101,7 @@ def flagship(torch, np, F, dev, card):
              "gb_per_s": exp_bw.moved_bytes() / k_ms / 1e6,
              "plain_ms": lib_ms, "library_ms": lib_ms,
              "bound_ms": copy_bound, **card})
-    reset_launches()
+    reset_all_launches()
     if exp_bw.main() != 0:
         raise AssertionError("exp_bw.main() failed")
     probe_launches = dict(halo_copy.LAUNCHES)
@@ -1207,8 +1203,7 @@ def check_config(torch, np, name, cfg, x, dev, card, seed=7):
         0).values.cpu().numpy()
     model = registry.build(params, cfg, dev)
     cpu_model = registry.build(params, cfg, "cpu")
-    conv.reset_launches()
-    dec1.reset_launches()
+    reset_all_launches()
     with torch.inference_mode():
         got = model.masks(x.to(dev)).cpu()
         launches = {**conv.LAUNCHES, **dec1.LAUNCHES}
@@ -1269,8 +1264,7 @@ def configs(torch, np, dev, card):
         for i, r in enumerate(raws):
             paths.append(os.path.join(tmp, f"slice_{i:03d}.raw"))
             raw_io.write_raw(paths[-1], r)
-        conv.reset_launches()
-        dec1.reset_launches()
+        reset_all_launches()
         if not engine.initialize_engine(ckpt, log_dir=os.path.join(tmp, "log")):
             raise AssertionError("initialize_engine(base 8) returned False")
         eng = engine.get_engine()
@@ -1297,8 +1291,7 @@ def configs(torch, np, dev, card):
             raise AssertionError("initialize_engine(float32) returned False")
         eng = engine.get_engine()
         forwards0 = eng.forwards
-        conv.reset_launches()
-        dec1.reset_launches()
+        reset_all_launches()
         f32_out = os.path.join(tmp, "out_f32")
         ok, failed = engine.process_batch(paths, 768, 768,
                                           [f32_out] * len(paths),
@@ -1316,10 +1309,9 @@ def configs(torch, np, dev, card):
 
 
 def reset_all_launches():
-    from unetseg_tpu_torch.ops import cc_kernel, conv, dec1
+    from unetseg_tpu_torch import graphs
 
-    for mod in (conv, cc_kernel, dec1):
-        mod.reset_launches()
+    graphs.reset_launches()
 
 
 def all_launches() -> dict:
@@ -3283,7 +3275,6 @@ def partitions_modes(torch, np, models, u8, big, dev, card):
             want_masks = run(single)
             torch.cuda.synchronize()
             reset_all_launches()
-            conv_s8.reset_launches()
             got = run(multi)
             torch.cuda.synchronize()
             launches = {**all_launches(), **conv_s8.LAUNCHES}
@@ -3632,7 +3623,6 @@ def w8a8_phase(torch, np, F, dev, card):
 
         def counted(what, fn, engines, device_post=False):
             reset_all_launches()
-            conv_s8.reset_launches()
             before = [e.forwards for e in engines()]
             fn()
             torch.cuda.synchronize()
@@ -4688,7 +4678,6 @@ def spatial_model(torch, np, name, params, cfg, u8, dev, card):
         fn(params, u8)  # builds the replicas
         torch.cuda.synchronize()
         reset_all_launches()
-        conv_s8.reset_launches()
         spatial.reset_exchange()
         got = fn(params, u8)
         torch.cuda.synchronize()
@@ -5064,11 +5053,7 @@ def graph_kernels(graph, tmp: str):
 def counted_forward(torch, eng, *args):
     """``eng._masks_on(0, *args)`` with the counters set to 0 just before
     it: (masks, launches counted, replays it added)."""
-    from unetseg_tpu_torch.ops import conv_s8, groupnorm
-
     reset_all_launches()
-    conv_s8.reset_launches()
-    groupnorm.reset_launches()
     replays = eng.graph_replays
     masks = eng._masks_on(0, *args)
     torch.cuda.synchronize()
@@ -5284,7 +5269,7 @@ def groupnorm_phase(torch, np, F, dev, card) -> dict:
         finally:
             transunet.groupnorm_ops.group_norm = kernel
 
-    groupnorm.reset_launches()
+    reset_all_launches()
     forward_with(record)
     launches = groupnorm.LAUNCHES["groupnorm_nhwc"]
     if len(calls) != 52 or launches != len(calls):
@@ -5379,10 +5364,6 @@ def main() -> int:
                                        postprocess)
     from unetseg_tpu_torch.ops.preprocess import preprocess_oracle_u8
 
-    def reset_launches():
-        conv.reset_launches()
-        cc_kernel.reset_launches()
-
     def read_launches():
         return {**conv.LAUNCHES, "cc_label": sum(cc_kernel.LAUNCHES.values())}
 
@@ -5403,10 +5384,10 @@ def main() -> int:
     # -- 2. build (every kernel and the host library, all at once) ----------
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=8) as pool:
-        for fut in [pool.submit(load) for load in (
-                conv.load, conv.load_f32, cc_kernel.load, dec1.load,
-                halo_copy.load, native.load, dec1_phases.load,
-                conv_s8.load, groupnorm.load)]:
+        for fut in [pool.submit(lib.load) for lib in (
+                conv.LIBRARY, conv.LIBRARY_F32, cc_kernel.LIBRARY,
+                dec1.LIBRARY, halo_copy.LIBRARY, native.LIBRARY,
+                dec1_phases.LIBRARY, conv_s8.LIBRARY, groupnorm.LIBRARY)]:
             fut.result()
     log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3)})
     for r in conv.resources():
@@ -5456,7 +5437,7 @@ def main() -> int:
         dev_out = os.path.join(tmp, "out_device")
 
         # -- 4. main path, host cleanup ---------------------------------------
-        reset_launches()
+        reset_all_launches()
         if not engine.initialize_engine(CKPT, log_dir=os.path.join(tmp, "log")):
             raise AssertionError("initialize_engine returned False")
         eng = engine.get_engine()
@@ -5514,7 +5495,7 @@ def main() -> int:
             cc_err = max(cc_err, check_cc(torch, cc, cc_kernel, name, fg, seed))
 
         # -- 5. main path, device cleanup ----------------------------------
-        reset_launches()
+        reset_all_launches()
         if not engine.initialize_engine(CKPT, log_dir=os.path.join(tmp, "log"),
                                         device_postprocess=True):
             raise AssertionError("initialize_engine(device_postprocess=True) "
@@ -5584,7 +5565,7 @@ def main() -> int:
         os.makedirs(svc_in)
         for p in paths[:N_SERVICE]:
             shutil.copy(p, svc_in)
-        reset_launches()
+        reset_all_launches()
         svc = service.SegmentationService(port=0, device_postprocess=True)
         addr = svc.start()
         try:

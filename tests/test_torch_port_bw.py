@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from unetseg_tpu_torch import graphs
 from unetseg_tpu_torch.ops import halo_copy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,7 +41,7 @@ def test_plain_matches_pallas_copy(exp_bw, kernel, row_offset):
                     .manual_seed(row_offset)).to(torch.bfloat16)
     want = np.asarray(getattr(exp_bw, kernel)(8)(
         jnp.asarray(x.float().numpy(), jnp.bfloat16)).astype(jnp.float32))
-    halo_copy.reset_launches()
+    graphs.reset_launches()
     got = halo_copy.halo_copy(x, H, W2, row_offset)
     assert got.shape == (B, H, W2, K) and got.dtype == torch.bfloat16
     assert got.is_contiguous()

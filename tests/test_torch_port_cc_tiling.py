@@ -28,6 +28,7 @@ import chip_smoke
 from unetseg_tpu.ops import cc as jax_cc
 from unetseg_tpu.ops import postprocess as jax_pp
 from unetseg_tpu.ops.cc_pallas import cc_label_pallas, propagate_min_pallas
+from unetseg_tpu_torch import graphs
 from unetseg_tpu_torch.ops import cc, cc_kernel, postprocess
 
 POISON = 0x5A5A5A5A  # a stats slot the kernel never writes
@@ -446,7 +447,7 @@ def test_stats_plain_tables_match_jax_exact_tables(case):
 
 def test_stats_wrapper_on_cpu_runs_plain_and_counts_nothing():
     fg = torch.from_numpy(np.random.default_rng(3).random((2, 20, 30)) > 0.5)
-    cc_kernel.reset_launches()
+    graphs.reset_launches()
     got_l, got_s = cc_kernel.cc_label_stats(fg)
     want_l, want_s = cc_kernel.cc_label_stats_plain(fg)
     assert torch.equal(got_l, want_l) and torch.equal(got_s, want_s)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from unetseg_tpu.ops import pallas_conv
+from unetseg_tpu_torch import graphs
 from unetseg_tpu_torch.ops import conv
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
@@ -58,7 +59,7 @@ def test_plain_matches_pallas(c, d, h, w, relu, dtype):
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing():
     x, wt, bias = _inputs(0, 1, 6, 5, 16, 16)
     tx, tw, tb = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, wt, bias))
-    conv.reset_launches()
+    graphs.reset_launches()
     got = conv.conv3x3_bias_act(tx, tw, tb)
     assert torch.equal(got, conv.conv3x3_bias_act_plain(tx, tw, tb))
     assert all(n == 0 for n in conv.LAUNCHES.values())

@@ -246,15 +246,16 @@ def test_f32_plan_invariants(shape):
 
 
 def test_kernel_entry_takes_only_cuda_float32():
-    """On the CPU the wrapper runs the plain version; K8's own entry
-    refuses what the kernel does not take instead of falling back."""
+    """On the CPU the wrapper runs the plain version; on a device that is
+    neither the CPU nor a card it refuses float32 tensors instead of
+    falling back."""
     x = torch.randn((1, 4, 4, 16))
     w = torch.randn((3, 3, 16, 16))
     b = torch.zeros(16)
     torch.testing.assert_close(conv.conv3x3_bias_act(x, w, b),
                                conv.conv3x3_bias_act_plain(x, w, b))
-    with pytest.raises(ValueError, match="one card"):
-        conv._conv3x3_f32(x, w, b, True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        conv.conv3x3_bias_act(*(t.to("meta") for t in (x, w, b)))
 
 
 def test_dtype_dispatch_names_each_kernel():

@@ -27,6 +27,7 @@ import torch
 
 import chip_smoke
 from unetseg_tpu import quantize as jq
+from unetseg_tpu_torch import graphs
 from unetseg_tpu_torch.models.unet import max_pool_2x2
 from unetseg_tpu_torch.ops import conv, conv_s8
 
@@ -297,7 +298,7 @@ def test_wrapper_cpu_route_and_refusals():
     x, wk = _operands((1, 4, 5, 16, 16), 2)
     x, wk = torch.from_numpy(x), torch.from_numpy(wk)
     scale, bias, s = torch.rand(16), torch.randn(16), torch.tensor(0.5)
-    conv_s8.reset_launches()
+    graphs.reset_launches()
     assert torch.equal(conv_s8.conv3x3_s8_q(x, wk, scale, bias, [s, s])[1],
                        conv_s8.quant_act(conv_s8.conv3x3_s8_plain(
                            x, wk, scale, bias), s))

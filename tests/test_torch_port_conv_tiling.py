@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import chip_smoke
+from unetseg_tpu_torch import _build
 from unetseg_tpu_torch.ops import conv
 
 # (H, W, C, D) of every shape the card sees: slim4, the flagship (C = 1 and
@@ -164,6 +165,6 @@ def test_parse_ptxas():
         "_wgmma_kernelILi64ELi128EEEv14CUtensorMap_stS1_\n"
         "    0 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
         "ptxas info    : Used 112 registers, 16 bytes smem, 900 bytes cmem[0]\n")
-    (name, info), = conv.parse_ptxas(log).items()
+    (name, info), = _build.parse_ptxas(log).items()
     assert "ILi64ELi128E" in name
     assert info == {"registers": 112, "spill_bytes": 12, "smem_static": 16}

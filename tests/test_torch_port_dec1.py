@@ -26,6 +26,7 @@ import torch
 
 from unetseg_tpu.config import ModelConfig as JaxModelConfig
 from unetseg_tpu.models import unet as jax_unet
+from unetseg_tpu_torch import graphs
 from unetseg_tpu_torch.checkpoint import up_weight_from_hwio
 from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.models import registry
@@ -238,7 +239,7 @@ def test_odd_size_and_mixed_dtypes_raise():
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing():
     nat = _natural(5)
     ops = _port_args(*nat)
-    dec1.reset_launches()
+    graphs.reset_launches()
     assert torch.equal(dec1.dec1_fused_masks(*ops),
                        dec1.dec1_fused_plain(*ops))
     assert dec1.LAUNCHES == {"dec1_fused": 0}

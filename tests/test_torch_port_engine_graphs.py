@@ -93,11 +93,9 @@ def stand_in(monkeypatch):
     monkeypatch.setattr(graphs, "_capture", capture)
     monkeypatch.setattr(engine.InferenceEngine, "_capturable",
                         lambda self: self.mesh is None)
-    conv.reset_launches()
-    dec1.reset_launches()
+    graphs.reset_launches()
     yield made
-    conv.reset_launches()
-    dec1.reset_launches()
+    graphs.reset_launches()
 
 
 def _launches():

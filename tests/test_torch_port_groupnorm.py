@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from test_torch_port_transunet import VARIANTS, _cfg, _mcfg, _setup, _x
+from unetseg_tpu_torch import graphs
 from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.models import registry, transunet
 from unetseg_tpu_torch.ops import groupnorm
@@ -127,7 +128,7 @@ def test_counter_counts_a_call_a_norm(variant, monkeypatch):
     model = registry.build(tree, _mcfg(cfg), "cpu")
     units = cfg["resnet_units"]
     calls = _recorded(monkeypatch)
-    groupnorm.reset_launches()
+    graphs.reset_launches()
     with torch.no_grad():
         model(_x(u8))
     assert len(calls) == 1 + 3 * sum(units) + len(units)
@@ -385,7 +386,7 @@ def test_graph_replay_is_bit_equal_and_counts_52_a_forward(card):
                        dtype=torch.uint8)
     x = u8.float()[..., None] / 255.0
     with torch.inference_mode():
-        groupnorm.reset_launches()
+        graphs.reset_launches()
         f0, r0 = eng.forwards, eng.graph_replays
         for _ in range(3):
             got = eng._pipeline(u8)
@@ -415,7 +416,7 @@ def test_kernel_refusals_and_the_float32_path(card):
     with pytest.raises(TypeError):  # weights of another dtype than x
         groupnorm.group_norm(x, w.float(), b.float(), 32, 1e-6)
     # float32 on the card: the kernel refuses it, and counts nothing
-    groupnorm.reset_launches()
+    graphs.reset_launches()
     xf, wf, bf, rf = (t.float() for t in (x, w, b, r))
     with pytest.raises(TypeError, match="bf16 only"):
         groupnorm.group_norm(xf, wf, bf, 32, 1e-6, True, rf)

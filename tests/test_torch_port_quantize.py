@@ -29,7 +29,7 @@ from unetseg_tpu import checkpoint as jax_ckpt, quantize as jq
 from unetseg_tpu.config import ModelConfig as JaxModelConfig
 from unetseg_tpu.data import training_batch as jax_training_batch
 from unetseg_tpu.models import unet as jax_unet
-from unetseg_tpu_torch import checkpoint, quantize
+from unetseg_tpu_torch import checkpoint, graphs, quantize
 from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.data import training_batch
 from unetseg_tpu_torch.models import registry
@@ -285,7 +285,7 @@ def test_k7_plain_version_exact_and_cpu_route():
     acc = conv_s8.conv3x3_s8_acc_plain(x, w)
     assert acc.dtype == torch.int32 and torch.equal(acc.long(), want)
     scale, bias = torch.rand(9), torch.randn(9)
-    conv_s8.reset_launches()
+    graphs.reset_launches()
     got = conv_s8.conv3x3_s8(x, w, scale, bias, relu=False)
     assert torch.equal(got, acc.float() * scale + bias)
     assert conv_s8.LAUNCHES["conv3x3_s8"] == 0

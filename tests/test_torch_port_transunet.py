@@ -17,7 +17,7 @@ import torch
 from perfbench import inputs
 from perfbench.reference import host, transunet as ref_t
 from perfbench.reference.logit_gap import first_max, widest_gap
-from unetseg_tpu_torch import checkpoint, engine as engine_mod
+from unetseg_tpu_torch import checkpoint, engine as engine_mod, graphs
 from unetseg_tpu_torch.config import ModelConfig
 from unetseg_tpu_torch.models import registry, transunet
 from unetseg_tpu_torch.ops import attention
@@ -151,7 +151,7 @@ def test_attention_counter_counts_a_launch_a_layer(layers):
     cfg = _cfg(num_layers=layers)
     tree, u8 = _setup(cfg, 10, 1)
     model = registry.build(tree, _mcfg(cfg), "cpu")
-    attention.reset_launches()
+    graphs.reset_launches()
     with torch.no_grad():
         model(_x(u8))
         model.masks(_x(u8))

@@ -22,28 +22,24 @@ import sys
 
 import torch
 
-from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc
+from unetseg_tpu_torch._build import Library, check, cuda
 from unetseg_tpu_torch.ops import dec1
 
 PHASES = ("params", "x_wait", "up_mma", "up_epilogue", "skip_wait", "conv1",
           "c1_epilogue", "conv2", "head")
 
 
-def load() -> ctypes.CDLL:
-    """The stamped build of the kernel library (built on first use)."""
-    lib = ctypes.CDLL(build_shared(
-        "libdec1_phases", [nvcc(), *NVCC_FLAGS, "-DDEC1_PHASES"],
-        [dec1.SOURCE], deps=[dec1.HEADER]))
-    lib.utdec1_fused_bf16.restype = ctypes.c_int
-    lib.utdec1_fused_bf16.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    lib.utdec1_set_phase_buffer.argtypes = [ctypes.c_void_p]
-    return lib
+#: The stamped build of the kernel library.
+LIBRARY = Library("libdec1_phases", cuda("-DDEC1_PHASES"), [dec1.SOURCE],
+                  deps=[dec1.HEADER], functions={
+                      **dec1.FUNCTIONS,
+                      "utdec1_set_phase_buffer": (ctypes.c_int,
+                                                  [ctypes.c_void_p])})
 
 
 def run(B: int = 32, H: int = 512, W: int = 512, C: int = 64,
         K: int = 3) -> dict:
-    lib = load()
+    lib = LIBRARY.load()
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -62,12 +58,10 @@ def run(B: int = 32, H: int = 512, W: int = 512, C: int = 64,
     if lib.utdec1_set_phase_buffer(stamps.data_ptr()):
         raise RuntimeError("dec1_phases: cannot set the stamp buffer")
     for _ in range(2):  # the second run is the one kept
-        err = lib.utdec1_fused_bf16(
+        check(lib.utdec1_fused_bf16(
             *(t.data_ptr() for t in ops), out.data_ptr(), B, H, W, C, K,
             plan.th, plan.tw, plan.stages,
-            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"dec1_phases: launch failed ({err})")
+            torch.cuda.current_stream().cuda_stream), "dec1_phases")
         torch.cuda.synchronize()
     t = stamps.cpu().double()
     cycles = (t[..., 1:10] - t[..., :9]).mean(0)  # (group, phase)

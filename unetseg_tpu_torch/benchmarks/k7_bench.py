@@ -82,7 +82,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=2) as pool:
-        for fut in [pool.submit(f) for f in (conv_s8.load, conv.load)]:
+        for fut in [pool.submit(f) for f in (conv_s8.LIBRARY.load,
+                                             conv.load)]:
             fut.result()
     cs.log({"phase": "k7_build", "seconds": time.perf_counter() - t0,
             **card})
@@ -123,7 +124,8 @@ def others(torch, cs, conv, dev, card) -> None:
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=3) as pool:
-        for fut in [pool.submit(f) for f in (conv.load, conv.load_f32,
+        for fut in [pool.submit(f) for f in (conv.load,
+                                             conv.LIBRARY_F32.load,
                                              dec1.load)]:
             fut.result()
     cs.log({"phase": "others_build", "seconds": time.perf_counter() - t0,

@@ -80,7 +80,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    conv.load_f32()
+    conv.LIBRARY_F32.load()
     cs.log({"phase": "k8_build", "seconds": time.perf_counter() - t0,
             **card})
     if args.t2s:
@@ -113,7 +113,7 @@ def main(argv=None) -> int:
 def t2s(torch, cs, conv, dev, steps, card) -> None:
     import numpy as np
 
-    from unetseg_tpu_torch import train
+    from unetseg_tpu_torch import graphs, train
     from unetseg_tpu_torch.config import ModelConfig
     from unetseg_tpu_torch.data import training_batch
 
@@ -145,7 +145,7 @@ def t2s(torch, cs, conv, dev, steps, card) -> None:
     finally:
         conv.conv3x3_bias_act = entry
     torch.cuda.synchronize()
-    conv.reset_launches()
+    graphs.reset_launches()
     t0 = time.perf_counter()
     for _ in range(steps):
         loss = step()
@@ -158,7 +158,7 @@ def t2s(torch, cs, conv, dev, steps, card) -> None:
                       "loss": float(loss), **card}), flush=True)
 
     # Host time per call: the entry, the data gradient, K8's C entry.
-    lib = conv.load_f32()
+    lib = conv.LIBRARY_F32.load()
     c_entry = {"s": 0.0, "n": 0}
 
     class TimedLib:
@@ -173,7 +173,8 @@ def t2s(torch, cs, conv, dev, steps, card) -> None:
             return err
 
     rows = []
-    conv._lib_f32 = TimedLib()
+    timed = TimedLib()
+    conv.LIBRARY_F32.load = lambda: timed
     try:
         for xs, ws in shapes:
             x = torch.randn(xs, device=dev)
@@ -195,7 +196,7 @@ def t2s(torch, cs, conv, dev, steps, card) -> None:
                 torch.cuda.synchronize()
             rows.append(row)
     finally:
-        conv._lib_f32 = lib
+        del conv.LIBRARY_F32.load
     print(json.dumps({"phase": "k8_t2s_host", "calls": HOST_CALLS,
                       "shapes": rows, **card}), flush=True)
     prof = cs.profile_pipeline(torch, step, iters=PROFILED_STEPS, top=12)

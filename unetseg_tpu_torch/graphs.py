@@ -15,6 +15,7 @@ The kernel wrappers count launches as they enqueue them, each in a
 ``LAUNCHES`` dict it registers here (:func:`counts_launches`).  The
 increments made while capturing are taken back (no kernel ran) and added
 again at each replay, so the counters keep counting launches that ran.
+:func:`reset_launches` sets every registered counter to 0.
 """
 
 from __future__ import annotations
@@ -34,6 +35,12 @@ def counts_launches(counter: Dict[str, int]) -> Dict[str, int]:
     back the increments it made and a replay adds them; returns it."""
     COUNTERS.append(counter)
     return counter
+
+
+def reset_launches() -> None:
+    """Sets every registered launch counter to 0."""
+    for counter in COUNTERS:
+        counter.update(dict.fromkeys(counter, 0))
 
 
 def key(t: torch.Tensor) -> tuple:

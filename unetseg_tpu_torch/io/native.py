@@ -13,12 +13,11 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from unetseg_tpu_torch._build import build_shared
+from unetseg_tpu_torch._build import Library
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
@@ -26,11 +25,10 @@ _SOURCES = [os.path.join(_CSRC, "contour.cpp"), os.path.join(_CSRC, "emit.cpp")]
 # The compiler line of csrc/Makefile.
 _CXX = ["g++", "-O3", "-std=c++17", "-fPIC", "-fopenmp", "-shared"]
 
-_lock = threading.Lock()
-_lib = None
-
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i32p = ctypes.POINTER(ctypes.c_int32)
+_char_pp = ctypes.POINTER(ctypes.c_char_p)
+_size_p = ctypes.POINTER(ctypes.c_size_t)
 
 # Artifact tier bits of csrc/unetseg_host.h (UTPU_EMIT_*).
 TIER_SIZE_JSON = 1
@@ -42,52 +40,34 @@ TIER_FULL = 31
 TIER_MASK_JSON = TIER_SIZE_JSON | TIER_CONTOUR_JSON | TIER_MASK_PNG
 TIER_JSON = TIER_SIZE_JSON | TIER_CONTOUR_JSON
 
-
-def load() -> ctypes.CDLL:
-    """The host library, built on first use.  Raises if it cannot be."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(build_shared("libunetseg_host", _CXX, _SOURCES))
-        lib.utpu_extract_contours.restype = ctypes.c_int
-        lib.utpu_extract_contours.argtypes = [
-            _u8p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_i32p),
-            ctypes.POINTER(_i32p), _i32p]
-        lib.utpu_free.restype = None
-        lib.utpu_free.argtypes = [ctypes.c_void_p]
-        lib.utpu_preprocess.restype = None
-        lib.utpu_preprocess.argtypes = [
-            ctypes.POINTER(ctypes.c_uint16), ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, _u8p]
-        lib.utpu_contour_json.restype = ctypes.c_void_p
-        lib.utpu_contour_json.argtypes = [
-            _i32p, _i32p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_double, ctypes.c_double,
-            ctypes.POINTER(ctypes.c_size_t)]
-        lib.utpu_contour_json_labeled.restype = ctypes.c_void_p
-        lib.utpu_contour_json_labeled.argtypes = [
-            _i32p, _i32p, ctypes.c_int, _i32p, _i32p, ctypes.c_char_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double,
-            ctypes.POINTER(ctypes.c_size_t)]
-        lib.utpu_size_json.restype = ctypes.c_void_p
-        lib.utpu_size_json.argtypes = [
-            ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.POINTER(ctypes.c_size_t)]
-        lib.utpu_postprocess_batch.restype = None
-        lib.utpu_postprocess_batch.argtypes = [
-            _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, _u8p]
-        lib.utpu_postprocess_packed_batch.restype = None
-        lib.utpu_postprocess_packed_batch.argtypes = [
-            _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, _u8p]
-        lib.utpu_emit_batch.restype = ctypes.c_int
-        lib.utpu_emit_batch.argtypes = [
-            _u8p, _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_char_p),
-            ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, _i32p]
-        _lib = lib
-        return _lib
+LIBRARY = Library("libunetseg_host", lambda: _CXX, _SOURCES, functions={
+    "utpu_extract_contours": (ctypes.c_int, [
+        _u8p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_i32p),
+        ctypes.POINTER(_i32p), _i32p]),
+    "utpu_free": (None, [ctypes.c_void_p]),
+    "utpu_preprocess": (None, [
+        ctypes.POINTER(ctypes.c_uint16), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _u8p]),
+    "utpu_contour_json": (ctypes.c_void_p, [
+        _i32p, _i32p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_double, ctypes.c_double, _size_p]),
+    "utpu_contour_json_labeled": (ctypes.c_void_p, [
+        _i32p, _i32p, ctypes.c_int, _i32p, _i32p, ctypes.c_char_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double,
+        _size_p]),
+    "utpu_size_json": (ctypes.c_void_p, [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _size_p]),
+    "utpu_postprocess_batch": (None, [
+        _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, _u8p]),
+    "utpu_postprocess_packed_batch": (None, [
+        _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, _u8p]),
+    "utpu_emit_batch": (ctypes.c_int, [
+        _u8p, _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, _char_pp,
+        _char_pp, _char_pp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        _i32p])})
+#: The host library, built on first use; raises if it cannot be.
+load = LIBRARY.load
 
 
 def _take_bytes(lib, ptr, out_len, what: str) -> bytes:

@@ -30,15 +30,13 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from unetseg_tpu_torch import graphs
-from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc, read_log
+from unetseg_tpu_torch._build import Library, check, cuda
 from unetseg_tpu_torch.ops import cc
-from unetseg_tpu_torch.ops.conv import parse_ptxas
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "cc_label.cu")
@@ -49,14 +47,18 @@ TILE_CAP = 4096
 #: Bit 31 of a stats slot: the component touches the image border.
 TOUCH_BIT = -2 ** 31
 
-#: Kernel launches per entry since the last :func:`reset_launches`;
+LIBRARY = Library("libcc_label", cuda("-Xptxas", "-v"), [SOURCE], functions={
+    "utcc_label": (ctypes.c_int, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p]),
+    "utcc_propagate_min": (ctypes.c_int,
+                           [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                            ctypes.c_void_p] + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])})
+
+#: Kernel launches per entry since the last ``graphs.reset_launches``;
 #: ``cc_label`` counts both labelling entries (with and without stats).
 LAUNCHES: Dict[str, int] = graphs.counts_launches(
     {"cc_label": 0, "propagate_min": 0})
-
-_lock = threading.Lock()
-_lib = None
-_lib_path = None
 
 
 class TilePlan(NamedTuple):
@@ -98,38 +100,12 @@ def tile_plan(B: int, H: int, W: int,
     return TilePlan(th, tw, tiles_h, tiles_w, B * tiles_h * tiles_w)
 
 
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use.  Raises if it cannot be."""
-    global _lib, _lib_path
-    with _lock:
-        if _lib is None:
-            path = build_shared("libcc_label",
-                                [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"],
-                                [SOURCE])
-            lib = ctypes.CDLL(path)
-            lib.utcc_label.restype = ctypes.c_int
-            lib.utcc_label.argtypes = (
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-            lib.utcc_propagate_min.restype = ctypes.c_int
-            lib.utcc_propagate_min.argtypes = (
-                [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                 ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-            _lib, _lib_path = lib, path
-        return _lib
-
-
 def resources() -> list:
     """Per kernel of the library, what ``nvcc -Xptxas -v`` reported when it
     was built: dicts with keys ``kernel``, ``registers``, ``spill_bytes``,
     ``smem_static``."""
-    load()
     return [{"kernel": name, **info}
-            for name, info in sorted(parse_ptxas(read_log(_lib_path)).items())
+            for name, info in sorted(LIBRARY.ptxas().items())
             if info["registers"] is not None]
 
 
@@ -197,10 +173,7 @@ def _launch(fn, x: torch.Tensor, plan: TilePlan, *args) -> None:
     with torch.cuda.device(x.device):  # the launch goes to x's card
         err = fn(*args, b, h, w, plan.th, plan.tw,
                  torch.cuda.current_stream(x.device).cuda_stream)
-    if err == -1:
-        raise ValueError(f"{fn.__name__}: tile {plan.th} x {plan.tw} refused")
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+    check(err, fn.__name__)
 
 
 def _label(fg: torch.Tensor, what: str, stats: bool,
@@ -211,8 +184,9 @@ def _label(fg: torch.Tensor, what: str, stats: bool,
     table = torch.empty(b * (h * w + 1) if stats else 0, dtype=torch.int32,
                         device=x.device)
     if x.numel():
-        _launch(load().utcc_label, x, tile_plan(b, h, w, tile), x.data_ptr(),
-                lbl.data_ptr(), table.data_ptr() if stats else None)
+        _launch(LIBRARY.load().utcc_label, x, tile_plan(b, h, w, tile),
+                x.data_ptr(), lbl.data_ptr(),
+                table.data_ptr() if stats else None)
         LAUNCHES["cc_label"] += 1
     return lbl.reshape(fg.shape), table
 
@@ -254,7 +228,7 @@ def propagate_min(init: torch.Tensor, sentinel: int,
     lbl = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     out = torch.empty_like(lbl)
     if x.numel():
-        _launch(load().utcc_propagate_min, x, tile_plan(b, h, w, tile),
+        _launch(LIBRARY.load().utcc_propagate_min, x, tile_plan(b, h, w, tile),
                 x.data_ptr(), int(sentinel), lbl.data_ptr(), out.data_ptr())
         LAUNCHES["propagate_min"] += 1
     return out.reshape(init.shape)

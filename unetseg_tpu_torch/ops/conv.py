@@ -46,16 +46,14 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import os
-import re
-import threading
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch.overrides import handle_torch_function, has_torch_function_unary
 
 from unetseg_tpu_torch import graphs
-from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc, read_log
+from unetseg_tpu_torch._build import Library, check, cuda
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -65,21 +63,37 @@ SOURCE_F32 = os.path.join(CSRC, "conv3x3_f32.cu")
 #: The Hopper helpers the kernel sources include (hashed into the build).
 HEADER = os.path.join(CSRC, "hopper.cuh")
 
-#: Kernel launches per variant since the last :func:`reset_launches`.
+#: The conv entry points' arguments: x, w, b, out, B, H, W, C, D, relu, the
+#: tile plan's wt, rt, bn, bkc, fold, and the stream.
+_CONV_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+#: K1/K2's library.
+LIBRARY = Library("libconv3x3", cuda("-Xptxas", "-v"), [SOURCE],
+                  deps=[HEADER], functions={
+                      "utconv3x3_bf16": (ctypes.c_int, _CONV_ARGS),
+                      "utconv3x3_smem_bytes": (ctypes.c_int,
+                                               [ctypes.c_int] * 3)})
+#: K8's library: the conv and its weight stage.
+LIBRARY_F32 = Library("libconv3x3_f32", cuda("-Xptxas", "-v"), [SOURCE_F32],
+                      deps=[HEADER], functions={
+                          "utconv3x3_f32": (ctypes.c_int, _CONV_ARGS),
+                          "utconv3x3_f32_split": (
+                              ctypes.c_int,
+                              [ctypes.c_void_p] + [ctypes.c_longlong] * 4
+                              + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2),
+                          "utconv3x3_f32_smem_bytes": (ctypes.c_int,
+                                                       [ctypes.c_int] * 3)})
+load = LIBRARY.load
+
+#: Kernel launches per variant since the last ``graphs.reset_launches``.
 LAUNCHES: Dict[str, int] = graphs.counts_launches(
     {"conv3x3_bias_act": 0, "conv3x3_bias_act_small_c": 0,
      "conv3x3_bias_act_f32": 0})
 #: Of those, the launches the data gradient made (:class:`Conv3x3Function`).
-DGRAD_LAUNCHES: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+DGRAD_LAUNCHES: Dict[str, int] = graphs.counts_launches(
+    dict.fromkeys(LAUNCHES, 0))
 
 #: Output pixels per tile: the M of two 64-row wgmma warpgroups.
 TILE_PIXELS = 128
-
-_lock = threading.Lock()
-_lib = None
-_lib_path = None
-_lib_f32 = None
-_lib_f32_path = None
 
 
 class TilePlan(NamedTuple):
@@ -131,11 +145,6 @@ def _image_row_plan(B: int, H: int, W: int, D: int, bn: int, bkc: int,
     return TilePlan(wt, rt, bn, bkc, elem_bytes * bkc, wt >= 64 and bn <= 128,
                     tiles_w, tiles_h, tiles_n,
                     B * tiles_h * tiles_w * tiles_n)
-
-
-# The entry point's own error codes (CUDA's are positive).
-_ERRORS = {-1: "tile plan refused", -2: "no cuTensorMapEncodeTiled in the "
-           "driver", -3: "tensor map refused"}
 
 
 #: K8's (bkc, bn, fold) instantiations in ``csrc/conv3x3_f32.cu``: every
@@ -195,74 +204,29 @@ def split_weights_f32(w: torch.Tensor, c: int, d: int) -> torch.Tensor:
     if w.device.type == "cpu":
         return split_tf32(kmajor(F.pad(w, (0, d - w.shape[3],
                                            0, c - w.shape[2]))))
-    out = torch.empty((2, 3, 3, d, c), dtype=w.dtype, device=w.device)
     with torch.cuda.device(w.device):
-        _raise_on(_split_into(load_f32(), w, out, torch.cuda.current_stream(
-            w.device).cuda_stream))
+        return _split_weights(w, c, d, torch.cuda.current_stream(
+            w.device).cuda_stream)
+
+
+def _split_weights(w: torch.Tensor, c: int, d: int, stream) -> torch.Tensor:
+    """K8's weight stage launched on ``stream`` from CUDA ``w``: its split
+    K-major weights (2, 3, 3, d, c)."""
+    out = torch.empty((2, 3, 3, d, c), dtype=w.dtype, device=w.device)
+    check(LIBRARY_F32.load().utconv3x3_f32_split(
+        w.data_ptr(), *w.stride(), w.shape[2], w.shape[3], c, d,
+        out.data_ptr(), stream), "conv3x3")
     return out
 
 
-def _split_into(lib, w: torch.Tensor, out: torch.Tensor, stream) -> int:
-    """Launches K8's weight stage from CUDA ``w`` into ``out`` (2, 3, 3, d,
-    c); returns the entry point's error code."""
-    return lib.utconv3x3_f32_split(w.data_ptr(), *w.stride(), w.shape[2],
-                                   w.shape[3], out.shape[4], out.shape[3],
-                                   out.data_ptr(), stream)
-
-
-def reset_launches() -> None:
-    for counts in (LAUNCHES, DGRAD_LAUNCHES):
-        for k in counts:
-            counts[k] = 0
-
-
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use.  Raises if it cannot be."""
-    global _lib, _lib_path
-    with _lock:
-        if _lib is None:
-            path = build_shared("libconv3x3",
-                                [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"],
-                                [SOURCE], deps=[HEADER])
-            lib = ctypes.CDLL(path)
-            lib.utconv3x3_bf16.restype = ctypes.c_int
-            lib.utconv3x3_bf16.argtypes = (
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
-                + [ctypes.c_void_p])
-            lib.utconv3x3_smem_bytes.restype = ctypes.c_int
-            lib.utconv3x3_smem_bytes.argtypes = [ctypes.c_int] * 3
-            _lib, _lib_path = lib, path
-        return _lib
-
-
-def load_f32() -> ctypes.CDLL:
-    """K8's library, built on first use.  Raises if it cannot be."""
-    global _lib_f32, _lib_f32_path
-    with _lock:
-        if _lib_f32 is None:
-            path = build_shared("libconv3x3_f32",
-                                [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"],
-                                [SOURCE_F32], deps=[HEADER])
-            lib = ctypes.CDLL(path)
-            lib.utconv3x3_f32.restype = ctypes.c_int
-            lib.utconv3x3_f32.argtypes = (
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
-                + [ctypes.c_void_p])
-            lib.utconv3x3_f32_split.restype = ctypes.c_int
-            lib.utconv3x3_f32_split.argtypes = (
-                [ctypes.c_void_p] + [ctypes.c_longlong] * 4
-                + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
-            lib.utconv3x3_f32_smem_bytes.restype = ctypes.c_int
-            lib.utconv3x3_f32_smem_bytes.argtypes = [ctypes.c_int] * 3
-            _lib_f32, _lib_f32_path = lib, path
-        return _lib_f32
-
-
-def resources_f32() -> list:
-    """K8's instantiations as :func:`resources` lists K1's: registers,
-    spills, static and dynamic shared memory per ``(bkc, bn, fold)``."""
-    return _resources(load_f32(), _lib_f32_path, "conv3x3_tf32x3_kernel",
-                      "utconv3x3_f32_smem_bytes")
+def _padded_weights(w: torch.Tensor, c: int, d: int, stream
+                    ) -> torch.Tensor:
+    """K1/K2's weights: HWIO ``w`` zero-padded to (3, 3, c, d) (exact, as
+    :func:`pad_input_channels` and :func:`pad_output_channels` are),
+    contiguous."""
+    if tuple(w.shape[2:]) != (c, d):
+        w = F.pad(w, (0, d - w.shape[3], 0, c - w.shape[2]))
+    return w.contiguous()
 
 
 def resources() -> list:
@@ -271,46 +235,23 @@ def resources() -> list:
     dynamic shared memory: a list of dicts with keys ``bkc``, ``bn``,
     ``fold``, ``registers``, ``spill_bytes``, ``smem_static``,
     ``smem_dynamic``."""
-    return _resources(load(), _lib_path, "conv3x3_wgmma_kernel",
-                      "utconv3x3_smem_bytes")
+    return _resources(LIBRARY, "conv3x3_wgmma_kernel", "utconv3x3_smem_bytes")
 
 
-def _resources(lib, path: str, kernel: str, smem_fn: str) -> list:
-    out = []
-    for name, info in parse_ptxas(read_log(path)).items():
-        m = re.search(kernel + r"ILi(\d+)ELi(\d+)ELb([01])E", name)
-        if m:
-            bkc, bn, fold = (int(g) for g in m.groups())
-            out.append({"bkc": bkc, "bn": bn, "fold": bool(fold), **info,
-                        "smem_dynamic": getattr(lib, smem_fn)(bkc, bn,
-                                                              fold)})
-    return sorted(out, key=lambda r: (r["fold"], r["bkc"], r["bn"]))
+def resources_f32() -> list:
+    """K8's instantiations as :func:`resources` lists K1's: registers,
+    spills, static and dynamic shared memory per ``(bkc, bn, fold)``."""
+    return _resources(LIBRARY_F32, "conv3x3_tf32x3_kernel",
+                      "utconv3x3_f32_smem_bytes")
 
 
-def parse_ptxas(log: str) -> dict:
-    """{mangled kernel name: {"registers", "spill_bytes", "smem_static"}}
-    from ``ptxas -v`` output."""
-    out, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for)"
-                      r" '?([\w$]+)'?", line)
-        if m:
-            name = m.group(1)
-            out.setdefault(name, {"registers": None, "spill_bytes": 0,
-                                  "smem_static": 0})
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[name]["registers"] = int(m.group(1))
-            m = re.search(r"(\d+) bytes smem", line)
-            out[name]["smem_static"] = int(m.group(1)) if m else 0
-    return out
+def _resources(library: Library, template: str, smem: str) -> list:
+    smem_bytes = getattr(library.load(), smem)
+    return sorted(({"bkc": bkc, "bn": bn, "fold": fold, **info,
+                    "smem_dynamic": smem_bytes(bkc, bn, fold)}
+                   for (bkc, bn, fold), info in
+                   library.instantiations(template)),
+                  key=lambda r: (r["fold"], r["bkc"], r["bn"]))
 
 
 def conv3x3_bias_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -365,6 +306,20 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("conv3x3: x, w and b must be on one device")
 
 
+class _Kernel(NamedTuple):
+    """What a conv dtype runs on the card."""
+    library: Library
+    entry: str           # the conv's entry point, arguments _CONV_ARGS
+    plan: Callable       # (B, H, W, C, D) -> TilePlan
+    weights: Callable    # (w, C, D, stream) -> the weights the kernel reads
+
+
+_KERNELS = {torch.bfloat16: _Kernel(LIBRARY, "utconv3x3_bf16", tile_plan,
+                                    _padded_weights),
+            torch.float32: _Kernel(LIBRARY_F32, "utconv3x3_f32",
+                                   tile_plan_f32, _split_weights)}
+
+
 def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      relu: bool = True) -> torch.Tensor:
     """3x3 stride-1 SAME conv + bias (+ ReLU): (B,H,W,C) x (3,3,C,D) + (D,)
@@ -373,69 +328,21 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     CUDA tensors must be all bf16 (K1/K2) or all float32 (K8), x and b
     contiguous and 16-byte aligned (w may have any strides: the kernels
     read a laid-out copy); anything else raises.  C and D may be any size:
-    the kernel gets them zero-padded to multiples of 16
-    (:func:`pad_input_channels`, :func:`pad_output_channels`) and the
-    output is sliced back to D.  B, H and W may be any size; the kernels
-    run :func:`tile_plan`'s or :func:`tile_plan_f32`'s tiling.
+    the kernel gets them zero-padded to multiples of 16 and the output is
+    sliced back to D; K1/K2 take the weights padded
+    (:func:`pad_input_channels`, :func:`pad_output_channels`), K8 from its
+    weight stage (:func:`split_weights_f32`).  B, H and W may be any size;
+    the kernels run :func:`tile_plan`'s or :func:`tile_plan_f32`'s tiling.
     """
     _check(x, w, b)
     if x.device.type == "cpu":
         return conv3x3_bias_act_plain(x, w, b, relu)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3: unsupported device {x.device}")
-    if x.dtype == w.dtype == b.dtype == torch.float32:
-        return _conv3x3_f32(x, w, b, relu)
-    if not x.dtype == w.dtype == b.dtype == torch.bfloat16:
+    kernel = _KERNELS.get(x.dtype) if x.dtype == w.dtype == b.dtype else None
+    if kernel is None:
         raise TypeError(f"conv3x3 kernels take bf16 or float32, all alike; "
                         f"got {x.dtype}, {w.dtype}, {b.dtype}")
-    d_out = w.shape[3]
-    x, w = pad_input_channels(x, w)
-    w, b = pad_output_channels(w, b)
-    w = w.contiguous()
-    B, H, W, C = x.shape
-    D = w.shape[3]
-    if not (x.is_contiguous() and b.is_contiguous()):
-        raise ValueError("conv3x3 kernel needs contiguous x and b")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("conv3x3 kernel needs 16-byte aligned x and w")
-    plan = tile_plan(B, H, W, C, D)
-    _check_grid(plan, B, H, W)
-    out = torch.empty((B, H, W, D), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):  # the launch goes to x's card
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = load().utconv3x3_bf16(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            B, H, W, C, D, int(relu), plan.wt, plan.rt, plan.bn,
-            plan.bkc, int(plan.fold), stream)
-    _raise_on(err)
-    LAUNCHES[variant(C, x.dtype)] += 1
-    return out if D == d_out else out[..., :d_out].contiguous()
-
-
-def _check_grid(plan: TilePlan, B: int, H: int, W: int) -> None:
-    if plan.grid >= 2 ** 31 or max(B, H, W) >= 2 ** 31:
-        raise ValueError(f"conv3x3 kernel: {plan.grid} tiles, more than the "
-                         f"grid holds")
-
-
-def _raise_on(err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"conv3x3 kernel launch failed: "
-                           f"{_ERRORS.get(err, f'CUDA error {err}')}")
-
-
-def _conv3x3_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 relu: bool) -> torch.Tensor:
-    """K8 on CUDA float32 tensors: x (B,H,W,C), w (3,3,C,D) HWIO of any
-    strides, b (D,).  C and D are zero-padded to multiples of 16 (exact, as
-    for K1): x and b here, the weights by the weight stage
-    (:func:`split_weights_f32`), which lays them out as the kernel's split
-    (2, 3, 3, D, C); raises on anything the kernel does not take."""
-    if not (x.device == w.device == b.device and x.device.type == "cuda"):
-        raise ValueError("conv3x3 f32 kernel: x, w, b must be on one card")
-    if not x.dtype == w.dtype == b.dtype == torch.float32:
-        raise TypeError(f"conv3x3 f32 kernel takes float32; got {x.dtype}, "
-                        f"{w.dtype}, {b.dtype}")
     d_out = w.shape[3]
     extra_c, extra_d = -x.shape[3] % 16, -d_out % 16
     if extra_c:
@@ -446,22 +353,27 @@ def _conv3x3_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     D = d_out + extra_d
     if not (x.is_contiguous() and b.is_contiguous()):
         raise ValueError("conv3x3 kernel needs contiguous x and b")
-    if x.data_ptr() % 16 or b.data_ptr() % 16:
-        raise ValueError("conv3x3 kernel needs 16-byte aligned x and b")
-    plan = tile_plan_f32(B, H, W, C, D)
+    plan = kernel.plan(B, H, W, C, D)
     _check_grid(plan, B, H, W)
-    ws = torch.empty((2, 3, 3, D, C), dtype=x.dtype, device=x.device)
     out = torch.empty((B, H, W, D), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):  # the launches go to x's card
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        lib = load_f32()
-        err = _split_into(lib, w, ws, stream) or lib.utconv3x3_f32(
-            x.data_ptr(), ws.data_ptr(), b.data_ptr(), out.data_ptr(),
+        wk = kernel.weights(w, C, D, stream)
+        if x.data_ptr() % 16 or wk.data_ptr() % 16 or b.data_ptr() % 16:
+            raise ValueError("conv3x3 kernel needs 16-byte aligned x, w and "
+                             "b")
+        check(getattr(kernel.library.load(), kernel.entry)(
+            x.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(),
             B, H, W, C, D, int(relu), plan.wt, plan.rt, plan.bn,
-            plan.bkc, int(plan.fold), stream)
-    _raise_on(err)
-    LAUNCHES["conv3x3_bias_act_f32"] += 1
+            plan.bkc, int(plan.fold), stream), "conv3x3")
+    LAUNCHES[variant(C, x.dtype)] += 1
     return out if D == d_out else out[..., :d_out].contiguous()
+
+
+def _check_grid(plan: TilePlan, B: int, H: int, W: int) -> None:
+    if plan.grid >= 2 ** 31 or max(B, H, W) >= 2 ** 31:
+        raise ValueError(f"conv3x3 kernel: {plan.grid} tiles, more than the "
+                         f"grid holds")
 
 
 def variant(c: int, dtype: torch.dtype) -> str:

@@ -29,8 +29,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import re
-import threading
 from typing import List, Sequence
 
 import torch
@@ -38,15 +36,24 @@ import torch.nn.functional as F
 from torch.overrides import handle_torch_function, has_torch_function_unary
 
 from unetseg_tpu_torch import graphs
-from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc, read_log
-from unetseg_tpu_torch.ops.conv import (_ERRORS, HEADER, TilePlan,
-                                        _check_grid, _check_plan,
-                                        _image_row_plan, parse_ptxas)
+from unetseg_tpu_torch._build import Library, check, cuda
+from unetseg_tpu_torch.ops.conv import (HEADER, TilePlan, _check_grid,
+                                        _check_plan, _image_row_plan)
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "conv3x3_s8.cu")
 
-#: Kernel launches since the last :func:`reset_launches`, both epilogues.
+LIBRARY = Library("libconv3x3_s8", cuda("-Xptxas", "-v"), [SOURCE],
+                  deps=[HEADER], functions={
+                      "utconv3x3_s8": (ctypes.c_int,
+                                       [ctypes.c_void_p] * 8
+                                       + [ctypes.c_int] * 12
+                                       + [ctypes.c_void_p]),
+                      "utconv3x3_s8_smem_bytes": (ctypes.c_int,
+                                                  [ctypes.c_int] * 4)})
+
+#: Kernel launches since the last ``graphs.reset_launches``, both
+#: epilogues.
 LAUNCHES = graphs.counts_launches({"conv3x3_s8": 0})
 
 #: The (bkc, bn, fold) plans ``csrc/conv3x3_s8.cu`` instantiates, each in
@@ -54,14 +61,6 @@ LAUNCHES = graphs.counts_launches({"conv3x3_s8": 0})
 S8_INSTANTIATIONS = tuple(
     [(bkc, bn, fold) for fold in (False, True) for bn in (64, 128)
      for bkc in (32, 64, 128)] + [(128, 256, False)])
-
-_lock = threading.Lock()
-_lib = None
-_lib_path = None
-
-
-def reset_launches() -> None:
-    LAUNCHES["conv3x3_s8"] = 0
 
 
 def tile_plan_s8(B: int, H: int, W: int, C: int, D: int) -> TilePlan:
@@ -82,44 +81,18 @@ def tile_plan_s8(B: int, H: int, W: int, C: int, D: int) -> TilePlan:
     return _image_row_plan(B, H, W, D, bn, bkc, 1)
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use.  Raises if it cannot be."""
-    global _lib, _lib_path
-    with _lock:
-        if _lib is None:
-            path = build_shared("libconv3x3_s8",
-                                [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"],
-                                [SOURCE], deps=[HEADER])
-            lib = ctypes.CDLL(path)
-            lib.utconv3x3_s8.restype = ctypes.c_int
-            lib.utconv3x3_s8.argtypes = (
-                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
-                + [ctypes.c_void_p])
-            lib.utconv3x3_s8_smem_bytes.restype = ctypes.c_int
-            lib.utconv3x3_s8_smem_bytes.argtypes = [ctypes.c_int] * 4
-            _lib, _lib_path = lib, path
-        return _lib
-
-
 def resources() -> list:
     """Per kernel instantiation, what ``nvcc -Xptxas -v`` reported when the
     library was built (registers, spills, static shared memory) and its
     dynamic shared memory: a list of dicts with keys ``bkc``, ``bn``,
     ``fold``, ``quant`` (the int8 epilogue), ``registers``,
     ``spill_bytes``, ``smem_static``, ``smem_dynamic``."""
-    lib = load()
-    out = []
-    for name, info in parse_ptxas(read_log(_lib_path)).items():
-        m = re.search(r"conv3x3_s8_wgmma_kernelILi(\d+)ELi(\d+)ELb([01])"
-                      r"ELb([01])E", name)
-        if m:
-            bkc, bn, fold, quant = (int(g) for g in m.groups())
-            out.append({"bkc": bkc, "bn": bn, "fold": bool(fold),
-                        "quant": bool(quant), **info,
-                        "smem_dynamic": lib.utconv3x3_s8_smem_bytes(
-                            bkc, bn, fold, quant)})
-    return sorted(out, key=lambda r: (r["quant"], r["fold"], r["bkc"],
-                                      r["bn"]))
+    smem = LIBRARY.load().utconv3x3_s8_smem_bytes
+    return sorted(({"bkc": bkc, "bn": bn, "fold": fold, "quant": quant,
+                    **info, "smem_dynamic": smem(bkc, bn, fold, quant)}
+                   for (bkc, bn, fold, quant), info in
+                   LIBRARY.instantiations("conv3x3_s8_wgmma_kernel")),
+                  key=lambda r: (r["quant"], r["fold"], r["bkc"], r["bn"]))
 
 
 def quant_act(x: torch.Tensor, act_scale: torch.Tensor) -> torch.Tensor:
@@ -232,7 +205,7 @@ def _launch(x_q, w_k, scale, bias, out_scales, relu) -> List[torch.Tensor]:
                          "8-byte aligned scale and bias")
     plan = tile_plan_s8(B, H, W, C, D)
     _check_grid(plan, B, H, W)
-    lib = load()
+    lib = LIBRARY.load()
     nq = len(out_scales)
     outs = [torch.empty((B, H, W, D), dtype=torch.int8 if nq else
                         torch.float32, device=x_q.device)
@@ -245,9 +218,7 @@ def _launch(x_q, w_k, scale, bias, out_scales, relu) -> List[torch.Tensor]:
             bias.data_ptr(), *qs, *ptrs, B, H, W, C, D, int(relu), nq,
             plan.wt, plan.rt, plan.bn, plan.bkc, int(plan.fold),
             torch.cuda.current_stream(x_q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"conv3x3_s8 kernel launch failed: "
-                           f"{_ERRORS.get(err, f'CUDA error {err}')}")
+    check(err, "conv3x3_s8")
     LAUNCHES["conv3x3_s8"] += 1
     return [o if D == d_out else o[..., :d_out].contiguous() for o in outs]
 

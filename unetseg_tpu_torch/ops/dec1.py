@@ -31,17 +31,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-import re
-import threading
 from typing import Dict, NamedTuple
 
 import torch
 from torch.overrides import handle_torch_function, has_torch_function_unary
 
 from unetseg_tpu_torch import graphs
-from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc, read_log
-from unetseg_tpu_torch.ops.conv import (HEADER, conv3x3_bias_act_plain,
-                                        parse_ptxas)
+from unetseg_tpu_torch._build import Library, check, cuda
+from unetseg_tpu_torch.ops.conv import HEADER, conv3x3_bias_act_plain
 from unetseg_tpu_torch.ops.decode import decode_mask
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -59,16 +56,16 @@ TILE_WIDTHS = (12, 28, 60)
 ACC_FLOATS = 128
 CONSUMERS = 2
 
-#: Kernel launches since the last :func:`reset_launches`.
+#: The kernel's entry points: the launch and its shared-memory layout.
+FUNCTIONS = {"utdec1_fused_bf16": (ctypes.c_int, [ctypes.c_void_p] * 11
+                                   + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
+             "utdec1_smem_bytes": (ctypes.c_int, [ctypes.c_int] * 4)}
+LIBRARY = Library("libdec1_fused", cuda("-Xptxas", "-v"), [SOURCE],
+                  deps=[HEADER], functions=FUNCTIONS)
+load = LIBRARY.load
+
+#: Kernel launches since the last ``graphs.reset_launches``.
 LAUNCHES: Dict[str, int] = graphs.counts_launches({"dec1_fused": 0})
-
-# The entry point's own error codes (CUDA's are positive).
-_ERRORS = {-1: "tile plan refused", -2: "no cuTensorMapEncodeTiled in the "
-           "driver", -3: "tensor map refused"}
-
-_lock = threading.Lock()
-_lib = None
-_lib_path = None
 
 
 class TilePlan(NamedTuple):
@@ -183,45 +180,18 @@ def kernel_takes(c: int, k: int) -> bool:
     return c in KERNEL_CHANNELS and 1 <= k <= MAX_CLASSES
 
 
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use.  Raises if it cannot be."""
-    global _lib, _lib_path
-    with _lock:
-        if _lib is None:
-            path = build_shared("libdec1_fused",
-                                [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"],
-                                [SOURCE], deps=[HEADER])
-            lib = ctypes.CDLL(path)
-            lib.utdec1_fused_bf16.restype = ctypes.c_int
-            lib.utdec1_fused_bf16.argtypes = (
-                [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-            lib.utdec1_smem_bytes.restype = ctypes.c_int
-            lib.utdec1_smem_bytes.argtypes = [ctypes.c_int] * 4
-            _lib, _lib_path = lib, path
-        return _lib
-
-
 def resources() -> list:
     """Per kernel instantiation (one per C), what ``nvcc -Xptxas -v``
     reported when the library was built (registers, spills, static shared
     memory) and the dynamic shared memory of its tile plan: a list of
     dicts with keys ``C``, ``th``, ``tw``, ``stages``, ``registers``,
     ``spill_bytes``, ``smem_static``, ``smem_dynamic``."""
-    lib = load()
+    smem = load().utdec1_smem_bytes
     out = []
-    for name, info in parse_ptxas(read_log(_lib_path)).items():
-        m = re.search(r"dec1_wgmma_kernelILi(\d+)E", name)
-        if m:
-            c = int(m.group(1))
-            th, tw, stages = _tile_shape(c)
-            out.append({"C": c, "th": th, "tw": tw, "stages": stages, **info,
-                        "smem_dynamic": lib.utdec1_smem_bytes(c, th, tw,
-                                                              stages)})
+    for (c,), info in LIBRARY.instantiations("dec1_wgmma_kernel"):
+        th, tw, stages = _tile_shape(c)
+        out.append({"C": c, "th": th, "tw": tw, "stages": stages, **info,
+                    "smem_dynamic": smem(c, th, tw, stages)})
     return sorted(out, key=lambda r: r["C"])
 
 
@@ -359,8 +329,6 @@ def dec1_fused_masks(x, skip, up_w, up_b, w1, b1, w2, b2, wh, bh
             *(t.data_ptr() for t in ops), out.data_ptr(), n, h, w, c, k,
             plan.th, plan.tw, plan.stages,
             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dec1_fused kernel launch failed: "
-                           f"{_ERRORS.get(err, f'CUDA error {err}')}")
+    check(err, "dec1_fused")
     LAUNCHES["dec1_fused"] += 1
     return out

@@ -30,14 +30,12 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from unetseg_tpu_torch import graphs
-from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc, read_log
-from unetseg_tpu_torch.ops.conv import parse_ptxas
+from unetseg_tpu_torch._build import Library, check, cuda
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "groupnorm_nhwc.cu")
@@ -68,13 +66,14 @@ ORACLE_TOL = 2.0 ** -6
 #: activations, whose means lie further from zero against their spread.
 ORACLE_STATS_TOL = 1e-5
 
-#: Kernel calls since the last :func:`reset_launches` (each one statistics,
-#: finalize and apply launch).
-LAUNCHES: Dict[str, int] = graphs.counts_launches({"groupnorm_nhwc": 0})
+LIBRARY = Library("libgroupnorm_nhwc", cuda("-Xptxas", "-v"), [SOURCE],
+                  functions={"utgroupnorm_nhwc_bf16": (
+                      ctypes.c_int, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])})
 
-_lock = threading.Lock()
-_lib = None
-_lib_path = None
+#: Kernel calls since the last ``graphs.reset_launches`` (each one
+#: statistics, finalize and apply launch).
+LAUNCHES: Dict[str, int] = graphs.counts_launches({"groupnorm_nhwc": 0})
 
 
 class Plan(NamedTuple):
@@ -106,33 +105,11 @@ def plan(n: int, hw: int, c: int, groups: int) -> Plan:
     return Plan(rows, pixels, chunks, 2 * n * c + 2 * n * chunks * groups)
 
 
-def reset_launches() -> None:
-    LAUNCHES["groupnorm_nhwc"] = 0
-
-
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use.  Raises if it cannot be."""
-    global _lib, _lib_path
-    with _lock:
-        if _lib is None:
-            path = build_shared("libgroupnorm_nhwc",
-                                [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"],
-                                [SOURCE])
-            lib = ctypes.CDLL(path)
-            lib.utgroupnorm_nhwc_bf16.restype = ctypes.c_int
-            lib.utgroupnorm_nhwc_bf16.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-            _lib, _lib_path = lib, path
-        return _lib
-
-
 def resources() -> dict:
     """What ``nvcc -Xptxas -v`` reported for each kernel of the library
-    (``ops.conv.parse_ptxas``: registers, spill bytes, static shared
+    (``_build.parse_ptxas``: registers, spill bytes, static shared
     memory), by mangled name."""
-    load()
-    return parse_ptxas(read_log(_lib_path))
+    return LIBRARY.ptxas()
 
 
 def group_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -242,14 +219,12 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     out = torch.empty_like(x)
     scratch = torch.empty(p.scratch, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):  # the launch goes to x's card
-        err = load().utgroupnorm_nhwc_bf16(
+        err = LIBRARY.load().utgroupnorm_nhwc_bf16(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
             None if residual is None else residual.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), n, h * w, c, groups,
             p.pixels, p.chunks, eps, int(relu),
             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        why = "arguments refused" if err == -1 else f"CUDA error {err}"
-        raise RuntimeError(f"group_norm kernel launch failed: {why}")
+    check(err, "group_norm")
     LAUNCHES["groupnorm_nhwc"] += 1
     return out

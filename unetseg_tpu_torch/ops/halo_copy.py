@@ -17,44 +17,25 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 from typing import Dict
 
 import torch
 
 from unetseg_tpu_torch import graphs
-from unetseg_tpu_torch._build import NVCC_FLAGS, build_shared, nvcc
+from unetseg_tpu_torch._build import Library, check, cuda
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "halo_copy.cu")
 #: Row offset -> the JAX kernel it ports.
 NAMES = {1: "copy_elem", 0: "copy_blocked"}
 
-#: Kernel launches per JAX kernel since the last :func:`reset_launches`.
+LIBRARY = Library("libhalo_copy", cuda(), [SOURCE], functions={
+    "uthalo_copy_bf16": (ctypes.c_int, [ctypes.c_void_p] * 2
+                         + [ctypes.c_int] * 7 + [ctypes.c_void_p])})
+
+#: Kernel launches per JAX kernel since the last ``graphs.reset_launches``.
 LAUNCHES: Dict[str, int] = graphs.counts_launches(
     {name: 0 for name in NAMES.values()})
-
-_lock = threading.Lock()
-_lib = None
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use.  Raises if it cannot be."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_shared(
-                "libhalo_copy", [nvcc(), *NVCC_FLAGS], [SOURCE]))
-            lib.uthalo_copy_bf16.restype = ctypes.c_int
-            lib.uthalo_copy_bf16.argtypes = (
-                [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-            _lib = lib
-        return _lib
 
 
 def halo_copy_plain(x: torch.Tensor, h: int, w2: int, row_offset: int
@@ -88,10 +69,9 @@ def halo_copy(x: torch.Tensor, h: int, w2: int, row_offset: int
                          f"aligned x with K a multiple of 8, got K={k}")
     out = torch.empty((b, h, w2, k), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):  # the launch goes to x's card
-        err = load().uthalo_copy_bf16(
+        err = LIBRARY.load().uthalo_copy_bf16(
             x.data_ptr(), out.data_ptr(), b, h, w2, hin, win, k, row_offset,
             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"halo_copy kernel launch failed: CUDA error {err}")
+    check(err, "halo_copy")
     LAUNCHES[NAMES[row_offset]] += 1
     return out
