@@ -147,7 +147,10 @@ Phases, each of which fails the run (non-zero exit) on error:
    run's masks differ, its u8 must, and its masks must be the host cleanup
    of the argmax of its own u8.  Slices/s, wall and staging seconds, the
    host stages (``pipeline.STAGES``: load, read, h2d, wait_load, dispatch,
-   d2h, cleanup, handoff, emit) and the device's idle share
+   d2h, cleanup, handoff, emit), the study runner's staging counts
+   (``pipeline.STAGING``: batches, those into a reused ring slot, those
+   more than one loader filled; a batch each for the two ``run_study``
+   modes) and the device's idle share
    (torch.profiler) of each run and of process_batch.  Their launches are
    added to the kernels line.
 16. The bench (``bench``): ``python -m unetseg_tpu_torch.bench`` in a
@@ -1793,10 +1796,12 @@ def study_model(torch, np, name, ckpt, paths, batch, tmp, dev, card):
         forwards0 = sum(e.forwards for e in engs)
         reset_all_launches()
         pipeline.STAGES.reset()
+        pipeline.STAGING.reset()
         res = run()
         launches = all_launches()
         forwards = sum(e.forwards for e in engs) - forwards0
         stages = pipeline.STAGES.summary()
+        staging = pipeline.STAGING.summary()
         masks[mode] = res.masks
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
@@ -1807,9 +1812,14 @@ def study_model(torch, np, name, ckpt, paths, batch, tmp, dev, card):
              "host_stages_s": {k: v["total_s"] for k, v in stages.items()},
              "host_stage_calls": {k: v["calls"] for k, v in stages.items()},
              "forwards": forwards, "launches": launches,
+             "staging": staging,
              "device_idle_share": prof["device_idle_share"],
              "device_ms": prof["device_ms_per_iter"],
              "profiled_wall_ms": prof["wall_ms_per_iter"], **card})
+        staged = 0 if mode.startswith("resident") else n_batches
+        if staging["batches"] != staged:
+            raise AssertionError(f"{name} {mode}: staging {staging}, want "
+                                 f"{staged} batches")
         want = {k: v * n_batches for k, v in MASKS_LAUNCHES[name].items()}
         want["cc_label"] = 2 * n_batches if mode == "resident_post" else 0
         if forwards != n_batches or launches != want:

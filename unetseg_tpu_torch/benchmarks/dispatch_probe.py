@@ -15,12 +15,15 @@ before each dispatch.  Prints one JSON line per measurement:
   launches each part enqueues (``cudaLaunchKernel``, ``cuLaunchKernelEx``,
   ``cudaGraphLaunch``, memsets and copies in a torch.profiler pass).
 - ``beside``: the whole dispatch's host ms, median and 90th percentile of
-  N, alone and beside T threads that each repeat one task: the study's
-  ``_load_batch`` of the batch's RAWs to the card (``loader``); a stack of
-  the memory-mapped RAWs (``mmap_stack``); a copy of a fresh 38 MB array
-  with numpy, the GIL released (``numpy_copy``); a pure-Python loop, the
-  GIL held (``python_spin``, 3 dispatches, each takes seconds).  Then
-  alone again.
+  N, alone and beside T threads: the study's loaders staging batch after
+  batch of the RAWs to the card as ``run_study`` stages them, a share of
+  each batch a thread into a reused pinned ring (``loader``; in a tree
+  that stages whole batches, each thread repeats ``_load_batch`` of the
+  batch); and T threads that each repeat one task: a stack of the
+  memory-mapped RAWs (``mmap_stack``); a copy of a fresh 38 MB array with
+  numpy, the GIL released (``numpy_copy``); a pure-Python loop, the GIL
+  held (``python_spin``, 3 dispatches, each takes seconds).  Then alone
+  again.
 
 ``--root DIR`` imports ``unetseg_tpu_torch`` from another checkout (for
 example the parent commit unpacked with ``git archive``), so two versions
@@ -38,6 +41,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -168,6 +172,21 @@ def main(argv=None) -> int:
             s += i
         return s
 
+    def staging_loaders(stop):
+        """``args.threads`` loaders staging batch after batch as the study
+        runner does, until ``stop``."""
+        shape = (BATCH, RAW_SIDE, RAW_SIDE)
+        depth = args.threads + 1
+        with pipeline._staging_ring(depth + 1, shape, np.uint16,
+                                    eng.device) as ring, \
+                ThreadPoolExecutor(max_workers=args.threads) as pool:
+            while not stop.is_set():
+                for _ in pipeline._staged(pool, [paths] * 4, RAW_SIDE,
+                                          RAW_SIDE, None, BATCH, eng.device,
+                                          depth, -(-BATCH // args.threads),
+                                          ring):
+                    pass
+
     tasks = {
         "loader": load,
         "mmap_stack": lambda: np.stack([np.asarray(raw_io.read_raw(
@@ -182,8 +201,11 @@ def main(argv=None) -> int:
             while not stop.is_set():
                 task()
 
+        n_threads = args.threads if beside in tasks else 0
+        if beside == "loader" and hasattr(pipeline, "_staged"):
+            neighbour, n_threads = (lambda: staging_loaders(stop)), 1
         threads = [threading.Thread(target=neighbour, daemon=True)
-                   for _ in range(args.threads if beside in tasks else 0)]
+                   for _ in range(n_threads)]
         for t in threads:
             t.start()
         ms = []
@@ -201,7 +223,8 @@ def main(argv=None) -> int:
                 t.join()
         med, p90 = _median_p90(ms)
         log({"probe": "beside", "beside": beside,
-             "threads": len(threads), "dispatches": n,
+             "threads": args.threads if beside in tasks else 0,
+             "dispatches": n,
              "dispatch_ms_median": med, "dispatch_ms_p90": p90,
              "graph_replays": getattr(eng, "graph_replays", None)})
     torch.cuda.synchronize()

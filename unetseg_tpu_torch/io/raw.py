@@ -60,6 +60,35 @@ def read_raw(path: str, width: int, height: int) -> np.ndarray:
     return np.memmap(path, dtype=np.uint16, mode="r", shape=(height, width))
 
 
+def read_raw_into(path: str, width: int, height: int,
+                  out: np.ndarray) -> None:
+    """Read a headerless RAW into ``out``, a C-contiguous (height, width)
+    uint16 array: the bytes :func:`read_raw` maps, read by the file system
+    straight into place (no mapping, no page faults of a first touch).
+
+    Raises as :func:`read_raw` does if the file is too small."""
+    if out.shape != (height, width) or out.dtype != np.uint16 \
+            or not out.flags.c_contiguous:
+        raise ValueError(f"read_raw_into wants a C-contiguous ({height}, "
+                         f"{width}) uint16 array, got {out.dtype} "
+                         f"{out.shape}")
+    nbytes = width * height * 2
+    view = memoryview(out).cast("B")
+    with open(path, "rb", buffering=0) as f:
+        actual = os.fstat(f.fileno()).st_size
+        if actual < nbytes:
+            raise ValueError(
+                f"RAW file too small: {path} has {actual} bytes, need "
+                f"{nbytes} for {width}x{height} uint16")
+        done = 0
+        while done < nbytes:
+            n = f.readinto(view[done:])
+            if not n:
+                raise EOFError(f"{path} ended after {done} of {nbytes} "
+                               "bytes")
+            done += n
+
+
 def write_raw(path: str, img: np.ndarray) -> None:
     """Write a (h, w) uint16 array as headerless RAW."""
     img = np.ascontiguousarray(img, dtype=np.uint16)

@@ -4,8 +4,9 @@ the port of ``unetseg_tpu.parallel.pipeline``.
 A three-stage host/device pipeline replacing the reference's serial
 per-file loop (src/main.cpp:148-164):
 
-  stage A (host thread pool): read RAW slices, assemble batches, copy them
-                              to the device
+  stage A (host thread pool): read RAW slices into their rows of a reused
+                              pinned slot, a share of the oldest batch a
+                              thread, and copy each batch to the device
   stage B (device):           (preprocess +) UNet + argmax (+ cleanup)
   stage C (host thread pool): C++ mask cleanup, PNG/JSON emission, contours
 
@@ -27,12 +28,16 @@ their threads); under a ``torch.profiler`` each stage is also a span
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import os
+import threading
 import time
 from collections import OrderedDict, deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -44,16 +49,19 @@ from unetseg_tpu_torch.ops import preprocess
 from unetseg_tpu_torch.utils.profiling import StageTimer
 
 #: Host stages of the last studies.  On the loader threads (in the
-#: device-resident mode: its untimed staging): "load" (read, host
-#: preprocess, tail padding), within it "read" (mapping the RAW files and,
-#: with the device resample, stacking them: the files' bytes), and
-#: "h2d" (pinning and enqueueing the copy to the device).  On the study's
-#: own thread, one after another: "wait_load" (waiting for the next loaded
-#: batch), "dispatch" (enqueueing the device stage and the copy back),
-#: "d2h" (waiting for a batch's masks on the host: the device's remaining
-#: work and the copy), "cleanup" (host C++ cleanup, or the 1-bit unpack),
-#: "handoff" (keeping the masks, handing them to the emitter threads).  On
-#: the emitter threads: "emit" (artifacts).  Callers reset it.
+#: device-resident mode: its untimed staging), one a share of a batch in
+#: :func:`run_study` (one a batch otherwise): "load" (read, host
+#: preprocess, tail padding), within it "read" (with the device resample,
+#: reading the RAW files into the batch's rows; with the host resample,
+#: mapping them); one a batch: "h2d" (enqueueing the copy to the device
+#: from the batch's pinned slot, or pinning a private array first).  On
+#: the study's own thread, one after another: "wait_load" (waiting for the
+#: next loaded batch), "dispatch" (enqueueing the device stage and the
+#: copy back), "d2h" (waiting for a batch's masks on the host: the
+#: device's remaining work and the copy), "cleanup" (host C++ cleanup, or
+#: the 1-bit unpack), "handoff" (keeping the masks, handing them to the
+#: emitter threads).  On the emitter threads: "emit" (artifacts).  Callers
+#: reset it.
 STAGES = StageTimer("study.")
 
 _TIERS = {"json": native.TIER_JSON, "mask_json": native.TIER_MASK_JSON,
@@ -113,12 +121,151 @@ def prefetch_map(pool, fn, items, depth: int):
         yield item, fut.result()
 
 
+class StagingCount:
+    """What the study runner's staging did since the last reset: batches
+    staged, those staged into a ring slot an earlier batch had used
+    ("reused"), and those whose slices more than one loader thread filled
+    ("split")."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.reset()
+
+    def add(self, reused: bool, split: bool) -> None:
+        with self._lock:
+            self.batches += 1
+            self.reused += reused
+            self.split += split
+
+    def reset(self) -> None:
+        with self._lock:
+            self.batches = self.reused = self.split = 0
+
+    def summary(self) -> Dict[str, Optional[float]]:
+        with self._lock:
+            b, r, s = self.batches, self.reused, self.split
+        return {"batches": b, "reused": r, "split": s,
+                "reuse_pct": 100.0 * r / b if b else None,
+                "split_pct": 100.0 * s / b if b else None}
+
+
+#: The study runner's staging counts; callers reset it, as ``STAGES``.
+STAGING = StagingCount()
+
+
+class _Slot:
+    """One batch of a staging ring: the source of its batch's copy to the
+    device, refilled only after that copy is done (:meth:`wait_free`)."""
+
+    def __init__(self, tensor: torch.Tensor) -> None:
+        self.tensor = tensor
+        self.host = tensor.numpy()
+        self.copied = None  # the event after the last copy out of the slot
+        self.batches = 0    # batches staged into it
+
+    def wait_free(self) -> None:
+        copied = self.copied
+        if copied is not None:  # one CUDA call a batch, not one a task
+            copied.synchronize()
+            self.copied = None
+
+    def to_device(self, device: torch.device) -> torch.Tensor:
+        if device.type != "cuda":
+            # the device is the host: a copy out, so that the slot can be
+            # refilled while the batch is still in use
+            return self.tensor.clone()
+        dev = self.tensor.to(device, non_blocking=True)
+        self.copied = torch.cuda.Event()
+        self.copied.record(torch.cuda.current_stream(device))
+        return dev
+
+
+_RINGS: "OrderedDict[tuple, List[_Slot]]" = OrderedDict()
+_RINGS_LOCK = threading.Lock()
+_MAX_RINGS = 4
+
+
+@contextlib.contextmanager
+def _staging_ring(n: int, shape: tuple, dtype: np.dtype,
+                  device: torch.device) -> Iterator[List[_Slot]]:
+    """A ring of at least ``n`` slots of one batch shape, dtype and device
+    (views of one host tensor, pinned where the device is a card) for one
+    user at a time: taken from the cache (made at the first use, or when
+    the cached one is too small) and put back after, the last few kept."""
+    key = (str(device), shape, np.dtype(dtype))
+    with _RINGS_LOCK:
+        ring = _RINGS.pop(key, None)
+    if ring is None or len(ring) < n:
+        block = torch.from_numpy(np.empty((n,) + shape, dtype))
+        if device.type == "cuda":
+            block = block.pin_memory()
+        ring = [_Slot(t) for t in block]
+    try:
+        yield ring
+    finally:
+        with _RINGS_LOCK:
+            _RINGS[key] = ring
+            while len(_RINGS) > _MAX_RINGS:
+                _RINGS.popitem(last=False)
+
+
+def _slice_layout(to_u8_size: Optional[int], width: int, height: int):
+    """(shape, dtype) of one staged slice: the host resample's u8, or the
+    RAW's u16."""
+    if to_u8_size is not None:
+        return (to_u8_size, to_u8_size), np.dtype(np.uint8)
+    return (height, width), np.dtype(np.uint16)
+
+
+class _Staging:
+    """One batch being staged into ``host`` (a ring slot's array, or a
+    private one) by one or more :func:`_load_batch` calls, each landing its
+    rows; the call that lands the last pads the ragged tail, copies the
+    batch to the device and resolves ``future`` with its result."""
+
+    def __init__(self, host: np.ndarray, rows: int,
+                 slot: Optional[_Slot] = None) -> None:
+        self.host, self.rows, self.slot = host, rows, slot
+        self.reused = slot is not None and slot.batches > 0
+        if slot is not None:
+            slot.batches += 1
+        self.left = rows
+        self.threads = set()
+        self.lock = threading.Lock()
+        self.future: Future = Future()
+
+    def land(self, n: int) -> bool:
+        """Count ``n`` landed rows; whether they were the batch's last."""
+        with self.lock:
+            self.threads.add(threading.get_ident())
+            self.left -= n
+            return self.left == 0
+
+    def to_device(self, device: torch.device) -> torch.Tensor:
+        if self.slot is not None:
+            return self.slot.to_device(device)
+        dev = torch.from_numpy(self.host)
+        if device.type == "cuda":
+            dev = dev.pin_memory().to(device, non_blocking=True)
+        return dev
+
+    def resolve(self, result=None, error: Optional[BaseException] = None):
+        with self.lock:
+            if self.future.done():  # an earlier row's load failed
+                return
+            if error is not None:
+                self.future.set_exception(error)
+            else:
+                self.future.set_result(result)
+
+
 def _load_batch(paths: Sequence[str], width: int, height: int,
                 to_u8_size: Optional[int] = None,
                 pad_to: Optional[int] = None,
                 to_device: bool = False,
                 keep_host: bool = False,
-                device: str = "cuda"):
+                device: str = "cuda",
+                into: Optional[Tuple[_Staging, int]] = None):
     """Read + (optionally) host-preprocess a batch; optionally pad the
     ragged tail to the batch shape (the last slice repeated) and copy it to
     ``device``.
@@ -129,30 +276,104 @@ def _load_batch(paths: Sequence[str], width: int, height: int,
     stream, the same stream the main thread's forward runs on: the forward
     enqueued after this returns is ordered after the copy.  ``keep_host``
     also returns the host array (the emitter needs the normalized u8):
-    -> (host, device)."""
-    with STAGES.stage("load"):
-        # read_raw maps the files; their pages come in at the first touch,
-        # which "read" holds only where it is the stack of the u16 slices
-        with STAGES.stage("read"):
-            raws = [np.asarray(raw_io.read_raw(p, width, height))
-                    for p in paths]
-            if to_u8_size is None:
-                out = np.stack(raws)
-        if to_u8_size is not None:
-            out = np.stack([native.preprocess_u8(r, to_u8_size)
-                            for r in raws])
-        if pad_to is not None and out.shape[0] < pad_to:
-            pad = np.repeat(out[-1:], pad_to - out.shape[0], axis=0)
-            out = np.concatenate([out, pad], axis=0)
-    dev = out
-    if to_device:
-        with STAGES.stage("h2d"):
-            dev = torch.from_numpy(out)
-            if torch.device(device).type == "cuda":
-                dev = dev.pin_memory().to(device, non_blocking=True)
-    if keep_host:
-        return out, dev
-    return dev
+    -> (host, device).
+
+    ``into=(staging, row)`` (the study runner's) lands the slices in the
+    rows of a batch being staged from ``row`` on and returns None; the call
+    that lands the batch's last row pads and copies the batch (to the
+    staging array's length, whatever ``pad_to``) and resolves
+    ``staging.future`` with what this function returns otherwise."""
+    private = into is None
+    if private:
+        shape, dtype = _slice_layout(to_u8_size, width, height)
+        host = np.empty((max(len(paths), pad_to or 0),) + shape, dtype)
+        into = (_Staging(host, len(paths)), 0)
+    staging, row = into
+    try:
+        with STAGES.stage("load"):
+            if staging.slot is not None:
+                staging.slot.wait_free()
+            dst = staging.host[row: row + len(paths)]
+            # the u16 slices are read straight into their rows; for the host
+            # resample read_raw maps the files, whose pages come in at the
+            # first touch, in the resample
+            with STAGES.stage("read"):
+                if to_u8_size is None:
+                    for d, p in zip(dst, paths):
+                        raw_io.read_raw_into(p, width, height, d)
+                else:
+                    raws = [np.asarray(raw_io.read_raw(p, width, height))
+                            for p in paths]
+            if to_u8_size is not None:
+                for d, r in zip(dst, raws):
+                    d[...] = native.preprocess_u8(r, to_u8_size)
+            if not staging.land(len(paths)):
+                return None
+            out = staging.host
+            out[staging.rows:] = out[staging.rows - 1]
+        dev = out
+        if to_device:
+            with STAGES.stage("h2d"):
+                dev = staging.to_device(torch.device(device))
+    except BaseException as e:
+        staging.resolve(error=e)
+        raise
+    result = (out, dev) if keep_host else dev
+    if not private:
+        STAGING.add(staging.reused, len(staging.threads) > 1)
+    staging.resolve(result)
+    return result if private else None
+
+
+class _ShareTasks:
+    """A pool front for :func:`prefetch_map`: a batch (its paths) goes in
+    as tasks of ``share`` slices each, in order, all into one
+    :class:`_Staging` made by ``staging(rows)``; the batch's future comes
+    back."""
+
+    def __init__(self, pool, staging: Callable[[int], _Staging],
+                 share: int) -> None:
+        self.pool, self.staging, self.share = pool, staging, share
+
+    def submit(self, fn, paths):
+        st = self.staging(len(paths))
+        for row in range(0, len(paths), self.share):
+            self.pool.submit(fn, paths[row: row + self.share], (st, row))
+        return st.future
+
+
+def _staged(pool, batch_paths: Sequence[Sequence[str]], width: int,
+            height: int, to_u8_size: Optional[int], batch_size: int,
+            device: torch.device, depth: int, share: int,
+            ring: Optional[List[_Slot]] = None):
+    """Each batch of ``batch_paths`` as :func:`_load_batch` loads it to
+    ``device``, in order, staged share by share: tasks of ``share`` slices
+    through ``pool`` in batch order, so that the loader threads fill the
+    oldest batch first, with at most ``depth`` batches outstanding.  The
+    batches go into ``ring``'s slots in turn (``depth + 1`` of them at
+    least: a slot is refilled only by a batch submitted after the one
+    before it was taken); without a ring each goes into a private array,
+    which is also returned: -> (host, device)."""
+    shape, dtype = _slice_layout(to_u8_size, width, height)
+    if ring is not None and len(ring) <= depth:
+        raise ValueError(f"a ring of {len(ring)} slots for {depth} batches "
+                         "in flight")
+    slots = itertools.cycle(ring) if ring is not None else None
+
+    def staging(rows: int) -> _Staging:
+        if slots is None:
+            return _Staging(np.empty((batch_size,) + shape, dtype), rows)
+        slot = next(slots)
+        return _Staging(slot.host, rows, slot)
+
+    def load(paths, into):
+        return _load_batch(paths, width, height, to_u8_size, batch_size,
+                           True, keep_host=ring is None, device=device,
+                           into=into)
+
+    tasks = _ShareTasks(pool, staging, share)
+    for _, res in prefetch_map(tasks, load, batch_paths, depth):
+        yield res
 
 
 def _pack_mask2(mask: torch.Tensor) -> torch.Tensor:
@@ -311,13 +532,19 @@ def run_study(
 
     t0 = time.perf_counter()
 
-    def load(idxs):
-        return _load_batch([slice_paths[k] for k in idxs], width, height,
-                           size if host_preprocess else None, batch_size,
-                           True, keep_host=tier is not None,
-                           device=eng.device)
-
-    with ThreadPoolExecutor(max_workers=loader_threads) as loaders, \
+    # Each loader takes a share of a batch, the oldest batch first, so the
+    # first batch is ready when a share is; the batches go into a reused
+    # ring of (pinned) slots.  The emitter keeps its batch's host u8 after
+    # the copy, so in artifact mode each batch has a private array
+    # instead.
+    depth = loader_threads + 1
+    u8_size = size if host_preprocess else None
+    shape, dtype = _slice_layout(u8_size, width, height)
+    staging_ring = (contextlib.nullcontext() if tier is not None
+                    else _staging_ring(depth + 1, (batch_size,) + shape,
+                                       dtype, eng.device))
+    with staging_ring as ring, \
+            ThreadPoolExecutor(max_workers=loader_threads) as loaders, \
             ThreadPoolExecutor(max_workers=emitter_threads) as emitters:
         pending: List[Tuple[Callable[[], np.ndarray], object, List[int]]] = []
         emit_futures = []
@@ -360,10 +587,13 @@ def run_study(
                         emit_futures.append(
                             emitters.submit(emit, k, slice_paths[k], masks[j]))
 
-        loaded = prefetch_map(loaders, load, batches, loader_threads + 1)
-        for _ in batches:
+        loaded = _staged(loaders, [[slice_paths[k] for k in idxs]
+                                   for idxs in batches],
+                         width, height, u8_size, batch_size, eng.device,
+                         depth, -(-batch_size // loader_threads), ring)
+        for idxs in batches:
             with STAGES.stage("wait_load"):
-                idxs, raws = next(loaded)
+                raws = next(loaded)
             # raws are on the device already (a loader-thread copy); in
             # artifact mode the loader also kept the host u8 for the emitter
             host_u8 = None
