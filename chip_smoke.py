@@ -6,9 +6,9 @@
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. Device: the card's name and power limit (nvidia-smi); no CUDA -> exit 1.
-2. Build: all seven kernel sources (conv, the float32 conv K8, CCL, fused
-   last decoder level, halo copy, the int8 conv K7, GroupNorm K9; nvcc,
-   sm_90a), K6's phase-stamped build and the host C++ library, all at
+2. Build: all eight kernel sources (conv, the float32 conv K8, CCL, fused
+   last decoder level, halo copy, the int8 conv K7, GroupNorm K9, the
+   rel-pos bias K10; nvcc, sm_90a), K6's phase-stamped build and the host C++ library, all at
    once; then
    the conv kernel's, K6's, the CCL passes', K8's and K7's registers,
    spills and shared memory per instantiation, as ``nvcc -Xptxas -v``
@@ -360,6 +360,19 @@ Phases, each of which fails the run (non-zero exit) on error:
    the residual read once, 3.35 TB/s); the whole forward at batch 32 with
    the kernel and with the plain ops in its place, in turns, and the
    kernel's device time in it (torch.profiler).
+29. SAMed's rel-pos bias (``relpos_bias``, K10:
+   ``csrc/relpos_bias.cu``): the library's registers and spills (a spill
+   fails the run); at batch 32 on the card's bf16 terms of a global block
+   (1,024 keys, 12 heads) and of a windowed one (9 windows of 196 keys a
+   slice), the kernel against ``relpos_bias_plain`` within one bf16
+   rounding, its rows ``row_stride`` apart with zeros past the keys; per
+   forward (4 global and 8 windowed blocks) by CUDA events the kernel, its
+   plain version, the broadcast add of the bf16 terms (``library_ms``)
+   and the byte bound (the bias written once, the terms read once, 3.35
+   TB/s); launches read from ``relpos_bias.LAUNCHES``, set to 0 first, one
+   a call; a seeded published SAMed forward at batch 32: 12 launches, the
+   forward with the kernel and with the plain version in its place, in
+   turns, and the kernel's device time in it (torch.profiler).
 
 The line before the last is the ``{"kernels": [...]}`` record, each conv
 kernel's entry with its data-gradient launches (``dgrad_launches``); the
@@ -5353,6 +5366,127 @@ def groupnorm_phase(torch, np, F, dev, card) -> dict:
             "library_ms": sums["library_ms"]}
 
 
+# Phase 29: SAMed's rel-pos bias (K10) at the batch the study serves, on
+# SAM ViT-B's two kinds of block at 512²: (windows a slice, heads, side) and
+# the blocks of each kind a forward.
+RB_BATCH = 32
+RB_ITERS = 10
+RB_FORWARD_ITERS = 5
+RB_SOURCE = "unetseg_tpu_torch/csrc/relpos_bias.cu"
+RB_BLOCKS = {"global": (1, 12, 32, 4), "windowed": (9, 12, 14, 8)}
+
+
+def relpos_library(rel_h, rel_w):
+    """The expansion as one broadcast add of the bf16 terms (the library's
+    elementwise kernel, contiguous rows): the yardstick of ``library_ms``."""
+    return (rel_h[..., :, None] + rel_w[..., None, :]).flatten(-2)
+
+
+def relpos_phase(torch, np, F, dev, card) -> dict:
+    """Phase 29 (module docstring).  Returns K10's kernels-line record."""
+    from unetseg_tpu_torch.config import ModelConfig
+    from unetseg_tpu_torch.models import registry, samed
+    from unetseg_tpu_torch.ops import attention, relpos_bias
+
+    res = relpos_bias.LIBRARY.ptxas()
+    for name, info in sorted(res.items()):
+        log({"phase": "relpos_resources", "kernel": name, **info})
+    if len(res) != 1 or any(r["spill_bytes"] for r in res.values()):
+        raise AssertionError(f"K10: want 1 kernel without spills, got {res}")
+    kernel, plain = relpos_bias.relpos_bias, relpos_bias.relpos_bias_plain
+    sums = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+    err_max, calls = 0.0, 0
+    relpos_bias.LAUNCHES["relpos_bias"] = 0
+    g = torch.Generator(device=dev).manual_seed(29)
+    for kind, (windows, heads, side, blocks) in RB_BLOCKS.items():
+        L = side * side
+        shape = (RB_BATCH * windows, heads, L, side)
+        rel_h, rel_w = (torch.randn(shape, generator=g, device=dev)
+                        .to(torch.bfloat16) for _ in range(2))
+        got = kernel(rel_h, rel_w)
+        want = plain(rel_h, rel_w)
+        calls += 1
+        ld = relpos_bias.row_stride(L)
+        padded = got.as_strided((*got.shape[:-1], ld), got.stride())
+        if got.stride(-2) != ld or padded[..., L:].any():
+            raise AssertionError(f"K10 {kind}: row stride {got.stride(-2)}, "
+                                 f"want {ld} with zero columns past {L}")
+        # one bf16 rounding of the float32 sum, at most
+        err = (got.float() - want.float()).abs()
+        ulp = want.float().abs() * 2.0 ** -8
+        beyond = (err - ulp).max().item()
+        err_max = max(err_max, err.max().item())
+        if beyond > 0:
+            raise AssertionError(f"K10 {kind}: past one bf16 rounding of the "
+                                 f"plain version by {beyond}")
+        library_equal = torch.equal(relpos_library(rel_h, rel_w), want)
+        n = rel_h.numel()
+        bound = (n * side * 2 + 2 * n * 2) / PEAK_HBM_BYTES * 1e3
+        t = {"ms": time_ms(torch, lambda: kernel(rel_h, rel_w), RB_ITERS),
+             "plain_ms": time_ms(torch, lambda: plain(rel_h, rel_w),
+                                 RB_ITERS),
+             "library_ms": time_ms(torch, lambda: relpos_library(rel_h, rel_w),
+                                   RB_ITERS),
+             "bound_ms": bound}
+        calls += RB_ITERS + 2
+        log({"phase": "relpos_parity", "block": kind, "shape": list(shape),
+             "bit_equal": torch.equal(got, want),
+             "library_bit_equal": library_equal,
+             "max_abs_err": err.max().item(),
+             **t, "share_of_bound": bound / t["ms"], **card})
+        for k in sums:
+            sums[k] += blocks * t[k]
+        del rel_h, rel_w, got, want, padded, err, ulp
+    launches = relpos_bias.LAUNCHES["relpos_bias"]
+    if launches != calls:
+        raise AssertionError(f"K10: {launches} launches counted, want "
+                             f"{calls}")
+    log({"phase": "relpos_time", "batch": RB_BATCH, "per": "forward",
+         **sums, "share_of_bound": sums["bound_ms"] / sums["ms"], **card})
+    torch.cuda.empty_cache()
+    # a seeded published SAMed forward at the study's batch: 12 launches,
+    # then the bias in the kernel or in the plain version (which the backend
+    # pads with a copy of its own), in turns (plain, kernel, kernel, plain)
+    cfg = ModelConfig(arch="samed")
+    model = registry.build(samed.init(cfg, torch.Generator().manual_seed(0)),
+                           cfg, str(dev))
+    x = torch.rand((RB_BATCH, 512, 512, 1), generator=g, device=dev)
+
+    def forward_with(fn):
+        attention.relpos_bias_ops.relpos_bias = fn
+        try:
+            with torch.inference_mode():
+                return model(x)
+        finally:
+            attention.relpos_bias_ops.relpos_bias = kernel
+
+    relpos_bias.LAUNCHES["relpos_bias"] = 0
+    forward_with(kernel)
+    per_forward = relpos_bias.LAUNCHES["relpos_bias"]
+    if per_forward != 12:
+        raise AssertionError(f"K10: {per_forward} launches a forward, "
+                             f"want 12")
+    fwd = {"kernel": [], "plain": []}
+    for route in ("plain", "kernel", "kernel", "plain"):
+        fn = kernel if route == "kernel" else plain
+        fwd[route].append(time_ms(torch, lambda: forward_with(fn),
+                                  RB_FORWARD_ITERS))
+    prof = profile_pipeline(torch, lambda: forward_with(kernel), iters=3,
+                            top=60)
+    rb_ms = sum(k["ms_per_iter"] for k in prof["top"]
+                if "relpos_bias" in k["kernel"])
+    log({"phase": "relpos_forward", "batch": RB_BATCH,
+         "forward_ms_kernel": fwd["kernel"], "forward_ms_plain": fwd["plain"],
+         "relpos_bias_device_ms_in_forward": rb_ms,
+         "device_ms_per_forward": prof["device_ms_per_iter"],
+         "top": prof["top"][:20], **card})
+    return {"name": "relpos_bias", "route": "cuda", "source": RB_SOURCE,
+            "replaces": None, "launches": relpos_bias.LAUNCHES["relpos_bias"]
+            + calls, "max_abs_err": err_max, "ms": sums["ms"],
+            "plain_ms": sums["plain_ms"], "bound_ms": sums["bound_ms"],
+            "bound_by": "bytes", "library_ms": sums["library_ms"]}
+
+
 def main() -> int:
     import torch
 
@@ -5371,7 +5505,7 @@ def main() -> int:
     from unetseg_tpu_torch.models import registry
     from unetseg_tpu_torch.ops import (cc, cc_kernel, conv, conv_s8, dec1,
                                        groupnorm, halo_copy, morphology,
-                                       postprocess)
+                                       postprocess, relpos_bias)
     from unetseg_tpu_torch.ops.preprocess import preprocess_oracle_u8
 
     def read_launches():
@@ -5397,7 +5531,8 @@ def main() -> int:
         for fut in [pool.submit(lib.load) for lib in (
                 conv.LIBRARY, conv.LIBRARY_F32, cc_kernel.LIBRARY,
                 dec1.LIBRARY, halo_copy.LIBRARY, native.LIBRARY,
-                dec1_phases.LIBRARY, conv_s8.LIBRARY, groupnorm.LIBRARY)]:
+                dec1_phases.LIBRARY, conv_s8.LIBRARY, groupnorm.LIBRARY,
+                relpos_bias.LIBRARY)]:
             fut.result()
     log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3)})
     for r in conv.resources():
@@ -5802,6 +5937,11 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.append(groupnorm_phase(torch, np, F, dev, card))
     log({"phase": "groupnorm_phase_seconds",
+         "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.append(relpos_phase(torch, np, F, dev, card))
+    log({"phase": "relpos_phase_seconds",
          "seconds": time.perf_counter() - t0})
     for k in kernels:
         k["launches"] += f32_launches.get(k["name"], 0)

@@ -19,7 +19,7 @@ from unetseg_tpu_torch import _build, graphs
 from unetseg_tpu_torch.benchmarks import dec1_phases
 from unetseg_tpu_torch.io import native
 from unetseg_tpu_torch.ops import (attention, cc_kernel, conv, conv_s8, dec1,
-                                   groupnorm, halo_copy)
+                                   groupnorm, halo_copy, relpos_bias)
 
 SOURCE = r"""extern "C" {
 int add(int a, int b) { return a + b; }
@@ -169,6 +169,7 @@ KERNEL_LIBRARIES = [
     (dec1_phases.LIBRARY, "libdec1_phases", [dec1.SOURCE], [conv.HEADER],
      ["-DDEC1_PHASES"]),
     (groupnorm.LIBRARY, "libgroupnorm_nhwc", [groupnorm.SOURCE], [], PTXAS),
+    (relpos_bias.LIBRARY, "librelpos_bias", [relpos_bias.SOURCE], [], PTXAS),
     (cc_kernel.LIBRARY, "libcc_label", [cc_kernel.SOURCE], [], PTXAS),
     (halo_copy.LIBRARY, "libhalo_copy", [halo_copy.SOURCE], [], [])]
 
@@ -199,7 +200,7 @@ def test_host_library_keeps_the_makefile_line():
 def test_one_reset_zeroes_every_launch_counter():
     counters = (conv.LAUNCHES, conv.DGRAD_LAUNCHES, conv_s8.LAUNCHES,
                 dec1.LAUNCHES, groupnorm.LAUNCHES, cc_kernel.LAUNCHES,
-                halo_copy.LAUNCHES, attention.LAUNCHES)
+                halo_copy.LAUNCHES, attention.LAUNCHES, relpos_bias.LAUNCHES)
     for counter in counters:
         assert any(c is counter for c in graphs.COUNTERS)
         for name in counter:

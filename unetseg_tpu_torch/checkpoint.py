@@ -354,11 +354,14 @@ def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     * 2x2 up-convs become matmul weights (:func:`up_weight_from_hwio`).
     * 1x1 convs ``(1, 1, C, O)`` become ``(C, O)`` products.
 
-    A conv site without ``b`` (TransUNet's ResNet) has no bias.  TransUNet's
-    other sites: a dict holding a 2- or 3-D ``w`` (the attention's per-head
-    products) keeps it as ``{path}.weight``; a norm ``{"scale", "bias"}``
-    becomes ``{path}.weight`` and ``{path}.bias``; an array outside any site
-    (``embed.pos``) is ``{path}``.
+    A conv site without ``b`` (TransUNet's ResNet, SAMed's neck) has no
+    bias.  TransUNet's and SAMed's other sites: a dict holding a 2- or 3-D
+    ``w`` (the attention's per-head products) keeps it as ``{path}.weight``;
+    a norm ``{"scale", "bias"}`` becomes ``{path}.weight`` and
+    ``{path}.bias``; an array outside any site (``embed.pos``; SAMed's
+    ``rel_pos_h``, ``rel_pos_w``, ``tokens``, ``no_mask_embed``,
+    ``pe_gaussian`` and ``offset``) is ``{path}``.  SAMed's 16x16 patch
+    embedding keeps HWIO, its transposed convs are up-convs named ``up``.
 
     The top-level ``head`` of the UNet and Attention U-Net trees is the
     modules' ``head_weight`` / ``head_bias``.  A list may also come as a

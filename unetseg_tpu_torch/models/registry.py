@@ -2,12 +2,13 @@
 
 Checkpoints name their family in ``ModelConfig.arch``; every pipeline
 builds its model through :func:`build`, so the engine, TTA, windows, the
-study runner and the cascade serve any registered family.  The four float
-families are registered here: ``unet``, ``attention_unet``, ``unetpp`` and
-``transunet`` (the port's own); the quantized ``unet_w8a8`` registers itself
-from ``quantize.py`` at its first lookup.  A family is the module that holds
-its weights (made from the config and the parameter tree, whose head count
-UNet++ keeps and from which TransUNet reads every width) and its ``init``;
+study runner and the cascade serve any registered family.  The five float
+families are registered here: ``unet``, ``attention_unet``, ``unetpp``,
+``transunet`` and ``samed`` (the port's own); the quantized ``unet_w8a8``
+registers itself from ``quantize.py`` at its first lookup.  A family is the
+module that holds its weights (made from the config and the parameter tree,
+whose head count UNet++ keeps and from which TransUNet and SAMed read every
+width) and its ``init``;
 one mapping, ``checkpoint.params_from_jax``, names every family's sites by
 their path in the JAX tree.  A family may refuse paths it cannot take
 (:attr:`Family.refuses`, :func:`refuse`), each refusal naming the arch and
@@ -24,7 +25,8 @@ from torch import nn
 
 from unetseg_tpu_torch.checkpoint import params_from_jax
 from unetseg_tpu_torch.config import ModelConfig
-from unetseg_tpu_torch.models import attention_unet, transunet, unet, unetpp
+from unetseg_tpu_torch.models import (attention_unet, samed, transunet,
+                                      unet, unetpp)
 
 
 class Family(NamedTuple):
@@ -63,11 +65,15 @@ register("unetpp",
          lambda cfg, params: unetpp.UNetPP(cfg, len(params["heads"])),
          unetpp.init)
 _GLOBAL = "its attention mixes every token of the slice"
-register("transunet", transunet.TransUNet, transunet.init, refuses={
+_TRANSFORMER_REFUSES = {
     "row bands": _GLOBAL + ", so no band computes its part alone",
     "w8a8": "quantization covers the UNet family",
-    "training": "the port trains the convolutional families only"},
-    equivariant=False)
+    "training": "the port trains the convolutional families only"}
+register("transunet", transunet.TransUNet, transunet.init,
+         refuses=_TRANSFORMER_REFUSES, equivariant=False)
+# SAMed's windows start at the top-left, so a flip moves their padding
+register("samed", samed.SAMed, samed.init, refuses=_TRANSFORMER_REFUSES,
+         equivariant=False)
 
 
 def get(name: str) -> Family:
